@@ -1,0 +1,51 @@
+"""nnnoiseless_tpu_torch — the batched streaming denoiser on PyTorch + CUDA.
+
+The port of ``nnnoiseless_tpu`` (JAX/Pallas, kept as the reference) to one
+NVIDIA H100: the same RNNoise-lineage suppressor (48 kHz mono streams,
+10 ms frames, 22 Bark-band gains from an int8-valued GRU network, pitch
+comb filtering, overlap-add resynthesis), with the engine's two Pallas
+kernels rewritten as CUDA C++ kernels for ``sm_90a`` (``csrc/``).  It
+imports ``torch`` and never ``jax``.
+
+Quick start::
+
+    import nnnoiseless_tpu_torch as nt
+    out = nt.denoise_audio(samples, device="cuda")   # (n,) f32, i16 range
+
+    batch = nt.StreamBatch(batch=1024, device="cuda")
+    out, vad = batch.process(frames)                 # (1024, T, 480)
+
+On CPU tensors every kernel runs its plain PyTorch version instead.
+"""
+
+from .constants import FRAME_SIZE, FREQ_SIZE, NB_BANDS, NB_FEATURES
+from .denoise import (
+    DenoiseState,
+    Engine,
+    StreamBatch,
+    denoise_audio,
+    init_batch_carry,
+    process_frames,
+)
+from .model import ModelParseError, RnnModel, params_from_numpy
+from .pipeline import DenoiseCarry, FeatureState, FramePre, init_carry
+
+__all__ = [
+    "FRAME_SIZE",
+    "FREQ_SIZE",
+    "NB_BANDS",
+    "NB_FEATURES",
+    "DenoiseState",
+    "Engine",
+    "StreamBatch",
+    "denoise_audio",
+    "process_frames",
+    "init_batch_carry",
+    "RnnModel",
+    "ModelParseError",
+    "params_from_numpy",
+    "DenoiseCarry",
+    "FeatureState",
+    "FramePre",
+    "init_carry",
+]

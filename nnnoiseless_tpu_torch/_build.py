@@ -1,0 +1,108 @@
+"""Build and load the package's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``.  The
+library's name carries a hash of the sources, so it is built on first use
+and rebuilt whenever a source changes; nothing is built at import.  There
+is no fallback: a missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # per-kernel registers, shared memory and spills
+)
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+
+# C entry points: (argtypes); every one returns cudaGetLastError() as int.
+_SIGNATURES = {
+    # ds, ds_stride, w0, cand, pidx, batch, t_count, stream
+    "nnt_pitch_analysis": (P, I, P, P, P, I, I, P),
+    # tables: F, IV, band corr, band ranges, interp, dct, tansig;
+    # weights: int8 buffer, offsets (int32), acts (int32);
+    # carries in: mem, synth, cmem, hv, hn, hd, lastg, period, pgain;
+    # streams: filt, cand; out: packed;
+    # carries out: mem, synth, cmem, hv, hn, hd, lastg, period, pgain;
+    # batch, t_count, stream
+    "nnt_frame_loop": (P,) * 7 + (P,) * 3 + (P,) * 9 + (P,) * 2 + (P,) + (P,) * 9
+    + (I, I, P),
+}
+
+last_build_seconds = 0.0
+last_build_log = ""  # nvcc's output (ptxas resource usage) of the last build
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def build() -> pathlib.Path:
+    """Compile the kernels if the library for the current sources is
+    missing; returns its path."""
+    global last_build_seconds, last_build_log
+    lib = BUILD_DIR / f"libnnt_kernels_{_digest()}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, lib)
+    last_build_log = proc.stdout + proc.stderr
+    last_build_seconds = time.perf_counter() - t0
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

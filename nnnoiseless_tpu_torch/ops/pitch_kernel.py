@@ -1,0 +1,87 @@
+"""Kernel K1: per-frame pitch analysis over a chunk's decimated signal.
+
+Replaces ``nnnoiseless_tpu/ops/pitch_kernel.py::pitch_analysis_stream``.
+Frame t of stream b reads the 864-sample window
+``ds[b, 240(t+1) : 240(t+1) + 864]`` with lane 0 replaced by ``w0[t, b]``
+(the window-local decimation boundary, pitch.rs:455-458), whitens it,
+builds the 385-lag correlation and energy tables, runs the coarse/fine
+search and writes the 105 octave-removal candidate lanes and the pitch
+index.
+
+:func:`pitch_analysis_stream` launches ``csrc/pitch_kernel.cu`` for CUDA
+tensors and runs :func:`pitch_analysis_plain` for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from ..constants import PITCH_BUF_SIZE
+from .pitch import N_CAND, pitch_chain
+
+N_DS = PITCH_BUF_SIZE // 2  # 864
+DS_STEP = 240  # decimated samples per frame
+
+# Kernel launches since the last reset (the plain version does not count).
+launches = 0
+
+
+def window_stack(ds: torch.Tensor, w0: torch.Tensor, t_count: int) -> torch.Tensor:
+    """(T, B, 864) windows of frames 0..T-1 with the lane-0 patch."""
+    idx = DS_STEP * (torch.arange(t_count, device=ds.device) + 1)[:, None] + torch.arange(
+        N_DS, device=ds.device
+    )
+    wins = ds[:, idx].transpose(0, 1).clone()  # (T, B, 864)
+    wins[..., 0] = w0
+    return wins
+
+
+def pitch_analysis_plain(ds: torch.Tensor, w0: torch.Tensor, t_count: int):
+    """The plain PyTorch version: the ops/pitch.py chain on the window stack."""
+    return pitch_chain(window_stack(ds, w0, t_count))
+
+
+def _check(ds, w0, t_count):
+    if ds.dtype != torch.float32 or w0.dtype != torch.float32:
+        raise TypeError("ds and w0 must be float32")
+    if ds.ndim != 2 or w0.shape != (t_count, ds.shape[0]):
+        raise ValueError(f"bad shapes ds {tuple(ds.shape)}, w0 {tuple(w0.shape)}, T={t_count}")
+    need = N_DS + DS_STEP * t_count
+    if ds.shape[1] < need:
+        raise ValueError(f"ds too short for {t_count} windows: need {need}, have {ds.shape[1]}")
+    if ds.device != w0.device:
+        raise ValueError("ds and w0 must be on one device")
+
+
+def pitch_analysis_cuda(ds: torch.Tensor, w0: torch.Tensor, t_count: int):
+    """Launch K1 on ds's current CUDA stream; returns (cand (T,B,105),
+    pidx (T,B) int32)."""
+    global launches
+    _check(ds, w0, t_count)
+    if ds.stride(1) != 1 or not w0.is_contiguous():
+        raise ValueError("ds rows and w0 must be contiguous")
+    b = ds.shape[0]
+    cand = torch.empty((t_count, b, N_CAND), dtype=torch.float32, device=ds.device)
+    pidx = torch.empty((t_count, b), dtype=torch.int32, device=ds.device)
+    if b and t_count:
+        lib = _build.library()
+        stream = torch.cuda.current_stream(ds.device).cuda_stream
+        err = lib.nnt_pitch_analysis(
+            ds.data_ptr(), ds.stride(0), w0.data_ptr(), cand.data_ptr(),
+            pidx.data_ptr(), b, t_count, stream,
+        )
+        _build.check(err, "nnt_pitch_analysis")
+        launches += 1
+    return cand, pidx
+
+
+def pitch_analysis_stream(ds: torch.Tensor, w0: torch.Tensor, t_count: int):
+    """(B, >= 864 + 240T) decimated signal, (T, B) lane-0 patches ->
+    ((T, B, 105) candidate lanes, (T, B) int32 pitch index)."""
+    if ds.is_cuda:
+        return pitch_analysis_cuda(ds, w0, t_count)
+    if ds.device.type != "cpu":
+        raise ValueError(f"unsupported device {ds.device}")
+    _check(ds, w0, t_count)
+    return pitch_analysis_plain(ds, w0, t_count)

@@ -1,0 +1,75 @@
+"""The port stands alone: importing and running it never loads JAX, CPU
+tensors never reach a kernel, and chip_smoke.py refuses to run without a
+card."""
+
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from nnnoiseless_tpu_torch.ops import frame_kernel as fk
+from nnnoiseless_tpu_torch.ops import pitch_kernel as pk
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+_PROBE = """
+import sys
+import numpy as np
+import nnnoiseless_tpu_torch as nt
+from nnnoiseless_tpu_torch.ops import frame_kernel as fk, pitch_kernel as pk
+assert "jax" not in sys.modules, "importing the port loaded jax"
+raw = np.fromfile("tests/data/testing.raw", "<i2").astype(np.float32)[: 6 * 480]
+out = nt.denoise_audio(raw, device="cpu")
+assert out.shape == (5 * 480,) and np.isfinite(out).all()
+assert (pk.launches, fk.launches) == (0, 0), (pk.launches, fk.launches)
+assert "jax" not in sys.modules, "running the port loaded jax"
+print("ok")
+"""
+
+
+def test_import_and_cpu_run_without_jax():
+    res = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_wrappers_take_only_cpu_or_cuda():
+    ds = torch.zeros((2, 864 + 240), device="meta")
+    w0 = torch.zeros((1, 2), device="meta")
+    with pytest.raises(ValueError):
+        pk.pitch_analysis_stream(ds, w0, 1)
+    carry = tuple(
+        torch.zeros((2,) + shape, dtype=torch.int32 if n == "period" else torch.float32)
+        for n, shape in fk.CARRY_SHAPES
+    )
+    with pytest.raises(ValueError):
+        fk.frame_loop(None, carry, torch.zeros((1, 2, 480), device="meta"), torch.zeros((1, 2, 105), device="meta"))
+
+
+def test_wrappers_check_shapes():
+    with pytest.raises(ValueError):
+        pk.pitch_analysis_stream(torch.zeros((2, 864)), torch.zeros((1, 2)), 1)  # too short
+    carry = tuple(torch.zeros((2,) + shape) for _, shape in fk.CARRY_SHAPES)
+    with pytest.raises(TypeError):  # period must be int32
+        fk.frame_loop(None, carry, torch.zeros((1, 2, 480)), torch.zeros((1, 2, 105)))
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_card(tmp_path, alone):
+    """No CUDA device here: the script exits non-zero and prints no result;
+    in a directory without the package it fails as well."""
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a card")
+    script = ROOT / "chip_smoke.py"
+    if alone:
+        script = pathlib.Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
+    res = subprocess.run(
+        [sys.executable, str(script)], cwd=script.parent, capture_output=True, text=True, timeout=300
+    )
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout

@@ -9,7 +9,15 @@
 5. golden: tests/data/testing.raw broadcast to B=128 through process_frames,
    against tests/data/reference_output.raw;
 6. real size: StreamBatch(4096) on 100-frame chunks, one warm-up and three
-   timed chunks, and each kernel's time beside its plain version's.
+   timed chunks, and each kernel's time beside its plain version's;
+7. K3 (stacked pitch), K5 (RNN cell) and K6 (pitch-lag window) against
+   their plain versions at B=4096 and B=1, with both times;
+8. the per-frame path: the golden clip through DenoiseState.process_frame
+   (K3, K5, K6 launch; K1, K2 do not), and its per-call latency;
+9. the scan engine at full width: StreamBatch(4096) with fused=False, one
+   warm-up and one timed chunk, against the two-phase engine;
+10. a model of non-standard topology on the card: the scan engine serves
+   it (K2 does not launch), against the same model on the CPU.
 
 Any failure exits non-zero before the last line.  The last two lines are a
 JSON object with each kernel's launches, error and times, and
@@ -35,6 +43,8 @@ K2_BATCH = 130
 GOLDEN_BATCH = 128
 REAL_SHAPE = (4096, 100)
 TIMED_CHUNKS = 3
+LATENCY_PASSES = 2  # timed passes over the golden clip in phase 8
+CUSTOM_SHAPE = (8, 20)  # (B, T) of phase 10
 
 
 def card_line() -> str:
@@ -80,6 +90,49 @@ def test_frames(batch: int, t_count: int, seed: int) -> np.ndarray:
     return np.clip(out, -32768, 32767).reshape(batch, t_count, FRAME)
 
 
+def golden_worst(out: np.ndarray, ref: np.ndarray) -> tuple[float, float]:
+    """Worst stream's (rel squared error, max per-sample error) of (S, n)
+    outputs with the first frame, against the reference output."""
+    worst_rel, worst_max = 0.0, 0.0
+    for row in out:
+        g = np.clip(np.rint(row[FRAME:].astype(np.float64)), -32768, 32767)
+        w = ref[: len(g)]
+        worst_rel = max(worst_rel, float(np.sum((w - g) ** 2) / np.sum(g ** 2)))
+        worst_max = max(worst_max, float(np.abs(w - g).max()))
+    return worst_rel, worst_max
+
+
+def waveform_bars(torch, got, want, per_got, per_want) -> tuple[bool, str]:
+    """Phase 4's bars on two engines' outputs: rel < 1e-3, max <= 64, > 16
+    units on <= 5% of samples, periods agree on >= 98% of frames."""
+    d = (got.double() - want.double()).abs()
+    rel = float((d ** 2).sum() / (want.double() ** 2).sum())
+    frac16 = float((d > 16).double().mean())
+    agree = float((per_got == per_want).double().mean())
+    ok = rel < 1e-3 and float(d.max()) <= 64 and frac16 <= 0.05 and agree >= 0.98
+    return ok, (f"rel {rel:.3g}, max {float(d.max()):.3g}, >16: {frac16:.3%}, "
+                f"periods agree {agree:.4%}")
+
+
+def custom_model(nt, seed: int):
+    """A valid model of non-standard topology (a 32-neuron vad GRU) with
+    seeded int8-valued weights."""
+    from nnnoiseless_tpu_torch.model import LayerMeta, ModelMeta
+
+    rng = np.random.RandomState(seed)
+    layers = (
+        ("input_dense", 42, 24, 0), ("vad_gru", 24, 32, 1), ("noise_gru", 98, 48, 2),
+        ("denoise_gru", 122, 96, 2), ("denoise_output", 96, 22, 1), ("vad_output", 32, 1, 1),
+    )
+    w = lambda *shape: rng.randint(-40, 41, size=shape).astype(np.float32)
+    params = {
+        name: ({"wi": w(n_in, 3 * n), "wr": w(n, 3 * n), "b": w(3 * n)} if name.endswith("gru")
+               else {"w": w(n_in, n), "b": w(n)})
+        for name, n_in, n, _ in layers
+    }
+    return nt.RnnModel(params, ModelMeta(*(LayerMeta(n_in, n, a) for _, n_in, n, a in layers)))
+
+
 def main() -> int:
     import torch
 
@@ -92,8 +145,19 @@ def main() -> int:
     from nnnoiseless_tpu_torch.chunk import decimate, precompute_chunk
     from nnnoiseless_tpu_torch.ops import frame_kernel as fk
     from nnnoiseless_tpu_torch.ops import pitch_kernel as pk
+    from nnnoiseless_tpu_torch.ops import rnn_kernel as rk
+    from nnnoiseless_tpu_torch.ops import window as wk
     from nnnoiseless_tpu_torch.ops.biquad import biquad_filter_frames
+    from nnnoiseless_tpu_torch.ops.pitch import downsample_2x, pitch_chain
+    from nnnoiseless_tpu_torch.ops.rnn import RnnState
     from nnnoiseless_tpu_torch.tables import BIQUAD_HP_A, BIQUAD_HP_B
+
+    def reset_counts():
+        pk.launches = pk.stacked_launches = fk.launches = rk.launches = wk.launches = 0
+
+    def counts():
+        return {"K1": pk.launches, "K2": fk.launches, "K3": pk.stacked_launches,
+                "K5": rk.launches, "K6": wk.launches}
 
     dev = torch.device(DEVICE)
     card = card_line()
@@ -171,18 +235,12 @@ def main() -> int:
     ref = np.fromfile(DATA / "reference_output.raw", "<i2").astype(np.float64)
     t5 = len(clip) // FRAME
     g_frames = np.broadcast_to(clip[: t5 * FRAME].reshape(1, t5, FRAME), (GOLDEN_BATCH, t5, FRAME))
-    pk.launches = fk.launches = 0
+    reset_counts()
     _, out5, _ = nt.process_frames(engine, nt.init_batch_carry(engine.model.meta, GOLDEN_BATCH, dev),
                                    np.ascontiguousarray(g_frames))
     torch.cuda.synchronize()
     counts5 = (pk.launches, fk.launches)
-    out5 = out5.cpu().numpy()
-    worst_rel, worst_max = 0.0, 0.0
-    for s in range(out5.shape[0]):
-        g = np.clip(np.rint(out5[s].reshape(-1)[FRAME:].astype(np.float64)), -32768, 32767)
-        w = ref[: len(g)]
-        worst_rel = max(worst_rel, float(np.sum((w - g) ** 2) / np.sum(g ** 2)))
-        worst_max = max(worst_max, float(np.abs(w - g).max()))
+    worst_rel, worst_max = golden_worst(out5.cpu().numpy().reshape(GOLDEN_BATCH, -1), ref)
     print(f"[5] golden B={GOLDEN_BATCH} T={t5}: worst stream rel {worst_rel:.3g}, max per-sample "
           f"{worst_max:.0f}; launches K1 {counts5[0]}, K2 {counts5[1]}")
     if not (worst_rel < 1e-4 and worst_max <= 2):
@@ -194,7 +252,7 @@ def main() -> int:
     b6, t6 = REAL_SHAPE
     big = torch.as_tensor(test_frames(b6, t6 * (TIMED_CHUNKS + 1), seed=6), device=dev)
     batch = nt.StreamBatch(b6, engine, device=dev)
-    pk.launches = fk.launches = 0
+    reset_counts()
     batch.process_tensor(big[:, :t6])  # warm-up chunk
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -233,17 +291,153 @@ def main() -> int:
         print(f"[6] {name} at B={b6} T={t6}: kernel {times[name][0]:.2f} ms, "
               f"plain {times[name][1]:.2f} ms ({card})")
 
+    # ---- 7. K3, K5 and K6 against their plain versions ---------------------------
+    # K3 windows: each stream's decimated input history at frame 50 of the
+    # phase-6 input (full[:, 480 (t + 1):][:1728]), as the per-frame path
+    # hands them over
+    hist = torch.cat([carry6.feat.input_mem, filt6.reshape(b6, -1)], 1)[:, 51 * FRAME : 51 * FRAME + 1728]
+    wins = downsample_2x(hist)
+    rng = np.random.RandomState(7)
+    rnn_in = tuple(
+        torch.as_tensor((rng.randn(b6, n) * sc).astype(np.float32), device=dev)
+        for n, sc in ((24, 0.5), (48, 0.5), (96, 0.5), (42, 2.0))
+    )
+    rnn_in = (*rnn_in[:1], rnn_in[1].clamp(min=0), *rnn_in[2:])
+    mem7 = torch.as_tensor((rng.randn(b6, 1728) * 1000).astype(np.float32), device=dev)
+    lag7 = torch.as_tensor(rng.randint(0, 769, size=b6).astype(np.int32), device=dev)
+    lag7[:2] = torch.tensor([0, 768], dtype=torch.int32)
+
+    def k3_check(kern, plain):
+        (ck, pk_), (cp, pp) = kern, plain
+        t_lanes = [0] + list(range(4, 18))
+        differ = (pk_ != pp) | (ck[:, t_lanes] != cp[:, t_lanes]).any(-1)
+        n_diff, worst = int(differ.sum()), int((pk_ - pp).abs().max())
+        rowscale = cp.abs().amax(-1, keepdim=True) + 1.0
+        same = ~differ
+        rel = float(((ck - cp).abs() / rowscale)[same].max()) if bool(same.any()) else 0.0
+        err = float((ck - cp).abs()[same].max()) if bool(same.any()) else 0.0
+        ok = n_diff <= 0.01 * differ.numel() and worst <= 2 and rel < 5e-3
+        return ok, err, f"{n_diff} of {differ.numel()} windows differ (largest pidx step {worst}), " \
+                        f"matching: max abs {err:.3g}, row-scale {rel:.3g}"
+
+    def k5_check(kern, plain):
+        st, gains, vad = plain
+        err = max(float((a - b).abs().max()) for a, b in zip(kern, (*st, gains, vad)))
+        return err <= 2e-5, err, f"max abs {err:.3g} over states, gains and vad"
+
+    def k6_check(kern, plain):
+        err = float((kern - plain).abs().max())
+        return bool(torch.equal(kern, plain)), err, f"max abs {err:.3g} (bit-exact required)"
+
+    def k3_pair(b):
+        w = wins[:b]
+        return lambda: pk.pitch_analysis_stacked_cuda(w), lambda: pitch_chain(w)
+
+    def k5_pair(b):
+        hv, hn, hd, f = (a[:b] for a in rnn_in)
+        return (lambda: rk.rnn_step_cuda(engine.weights, hv, hn, hd, f),
+                lambda: engine.rnn(RnnState(hv, hn, hd), f))
+
+    def k6_pair(b):
+        m, l = mem7[:b], lag7[:b]
+        return lambda: wk.window_cuda(m, l), lambda: wk.barrel_shift_window(m, l)
+
+    results7 = {}
+    for name, pair, check in (("K3", k3_pair, k3_check), ("K5", k5_pair, k5_check),
+                              ("K6", k6_pair, k6_check)):
+        for b in (b6, 1):
+            kern, plain = pair(b)
+            ok, err, msg = check(kern(), plain())
+            torch.cuda.synchronize()
+            reps = 20 if b == b6 else 200
+            p_ms = cuda_ms(torch, plain, reps)
+            k_ms = cuda_ms(torch, kern, reps)
+            results7[name, b] = (err, k_ms, p_ms)
+            print(f"[7] {name} B={b}: {msg}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms ({card})")
+            if not ok:
+                raise RuntimeError(f"{name} disagrees with its plain version at B={b}")
+
+    # ---- 8. the per-frame path ---------------------------------------------------
+    state = nt.DenoiseState(device=dev)
+    clip_frames = clip[: t5 * FRAME].reshape(t5, FRAME)
+    reset_counts()
+    out8 = np.stack([np.concatenate([state.process_frame(f)[0] for f in clip_frames])])
+    torch.cuda.synchronize()
+    counts8 = counts()
+    worst_rel, worst_max = golden_worst(out8, ref)
+    print(f"[8] per-frame golden T={t5}: rel {worst_rel:.3g}, max per-sample {worst_max:.0f}; "
+          f"launches {counts8}")
+    if not (worst_rel < 1e-4 and worst_max <= 2):
+        raise RuntimeError("golden bars failed through DenoiseState.process_frame")
+    if min(counts8["K3"], counts8["K5"], counts8["K6"]) == 0 or counts8["K1"] or counts8["K2"]:
+        raise RuntimeError("the per-frame path did not launch exactly K3, K5 and K6")
+    call_ms = []
+    for _ in range(LATENCY_PASSES):
+        state.reset()
+        for f in clip_frames:
+            t0 = time.perf_counter()
+            state.process_frame(f)
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+    p50, p99 = np.percentile(call_ms, [50, 99])
+    print(f"[8] process_frame latency over {len(call_ms)} calls: median {p50:.3f} ms, "
+          f"p99 {p99:.3f} ms, max {max(call_ms):.3f} ms ({card})")
+
+    # ---- 9. the scan engine at full width -------------------------------------------
+    c9 = nt.init_batch_carry(engine.model.meta, b6, dev)
+    c9, _, _ = nt.process_frames(engine, c9, big[:, :t6])
+    pre9, _ = precompute_chunk(c9.feat.input_mem, c9.feat.hp_mem, big[:, t6 : 2 * t6])
+    _, out_tp, _, (per_tp, _) = fk.run_frame_loop(engine.rnn, c9, pre9, engine.weights, return_trace=True)
+    del pre9
+    scan_engine = nt.Engine(engine.model, dev, fused=False)
+    batch9 = nt.StreamBatch(b6, scan_engine, device=dev)
+    reset_counts()
+    batch9.process_tensor(big[:, :t6])  # warm-up chunk
+    torch.cuda.synchronize()
+    start.record()
+    _, out9, _, (per9, _) = nt.scan_chunk(scan_engine, batch9.carry, big[:, t6 : 2 * t6], return_trace=True)
+    end.record()
+    end.synchronize()
+    counts9 = counts()
+    scan_ms = start.elapsed_time(end)
+    ok, msg = waveform_bars(torch, out9, out_tp, per9, per_tp)
+    print(f"[9] scan engine B={b6} T={t6}: {scan_ms:.2f} ms/chunk (two-phase {chunk_ms:.2f} ms); "
+          f"against the two-phase engine: {msg}; launches {counts9} ({card})")
+    if not ok or not bool(torch.isfinite(out9).all()):
+        raise RuntimeError("the scan engine disagrees with the two-phase engine")
+    if min(counts9["K1"], counts9["K5"], counts9["K6"]) == 0 or counts9["K2"]:
+        raise RuntimeError("the scan engine did not launch K1, K5 and K6 without K2")
+    del out9, out_tp
+
+    # ---- 10. a non-standard topology on the card ---------------------------------------
+    b10, t10 = CUSTOM_SHAPE
+    custom = custom_model(nt, seed=10)
+    frames10 = test_frames(b10, t10, seed=10)
+    reset_counts()
+    c10, out10, _ = nt.process_frames(custom, nt.init_batch_carry(custom.meta, b10, dev), frames10, device=dev)
+    torch.cuda.synchronize()
+    counts10 = counts()
+    c10c, out10c, _ = nt.process_frames(custom, nt.init_batch_carry(custom.meta, b10, "cpu"), frames10, device="cpu")
+    ok, msg = waveform_bars(torch, out10.cpu(), out10c, c10.feat.pitch_period.cpu(), c10c.feat.pitch_period)
+    print(f"[10] 32-neuron vad GRU, B={b10} T={t10}: against the CPU: {msg}; launches {counts10}")
+    if not ok or counts10["K2"] or counts10["K5"] or min(counts10["K1"], counts10["K6"]) == 0:
+        raise RuntimeError("the non-standard model was not served right by the scan engine")
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms):
+        return {"name": name, "route": "cuda", "source": f"nnnoiseless_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms}
+
     kernels = [
-        {"name": "pitch_analysis_stream", "route": "cuda",
-         "source": "nnnoiseless_tpu_torch/csrc/pitch_kernel.cu",
-         "replaces": "nnnoiseless_tpu/ops/pitch_kernel.py:696",
-         "launches": counts6[0], "max_abs_err": k1_err,
-         "ms": times["k1"][0], "plain_ms": times["k1"][1]},
-        {"name": "frame_loop_pallas", "route": "cuda",
-         "source": "nnnoiseless_tpu_torch/csrc/frame_kernel.cu",
-         "replaces": "nnnoiseless_tpu/ops/frame_kernel.py:769",
-         "launches": counts6[1], "max_abs_err": k2_err,
-         "ms": times["k2"][0], "plain_ms": times["k2"][1]},
+        entry("pitch_analysis_stream", "pitch_kernel.cu", "nnnoiseless_tpu/ops/pitch_kernel.py:696",
+              counts6[0], k1_err, *times["k1"]),
+        entry("frame_loop_pallas", "frame_kernel.cu", "nnnoiseless_tpu/ops/frame_kernel.py:769",
+              counts6[1], k2_err, *times["k2"]),
+        entry("pitch_analysis_pallas", "pitch_kernel.cu", "nnnoiseless_tpu/ops/pitch_kernel.py:651",
+              counts8["K3"], *results7["K3", b6]),
+        entry("rnn_step_pallas", "rnn_kernel.cu", "nnnoiseless_tpu/ops/rnn_pallas.py:145",
+              counts9["K5"], *results7["K5", b6]),
+        entry("_pallas_window", "window_kernel.cu", "nnnoiseless_tpu/ops/window.py:65",
+              counts9["K6"], *results7["K6", b6]),
     ]
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -3,9 +3,10 @@
 The port of ``nnnoiseless_tpu`` (JAX/Pallas, kept as the reference) to one
 NVIDIA H100: the same RNNoise-lineage suppressor (48 kHz mono streams,
 10 ms frames, 22 Bark-band gains from an int8-valued GRU network, pitch
-comb filtering, overlap-add resynthesis), with the engine's two Pallas
-kernels rewritten as CUDA C++ kernels for ``sm_90a`` (``csrc/``).  It
-imports ``torch`` and never ``jax``.
+comb filtering, overlap-add resynthesis), with the Pallas kernels of its
+paths rewritten as CUDA C++ kernels for ``sm_90a`` (``csrc/``): the
+two-phase engine (K1, K2), the scan engine (K1, K5, K6) and the per-frame
+path (K3, K5, K6).  It imports ``torch`` and never ``jax``.
 
 Quick start::
 
@@ -14,6 +15,9 @@ Quick start::
 
     batch = nt.StreamBatch(batch=1024, device="cuda")
     out, vad = batch.process(frames)                 # (1024, T, 480)
+
+    state = nt.DenoiseState(device="cuda")
+    out, vad = state.process_frame(frame)            # one 480-sample frame
 
 On CPU tensors every kernel runs its plain PyTorch version instead.
 """
@@ -26,9 +30,10 @@ from .denoise import (
     denoise_audio,
     init_batch_carry,
     process_frames,
+    scan_chunk,
 )
 from .model import ModelParseError, RnnModel, params_from_numpy
-from .pipeline import DenoiseCarry, FeatureState, FramePre, init_carry
+from .pipeline import DenoiseCarry, FeatureState, FramePre, frame_step, init_carry
 
 __all__ = [
     "FRAME_SIZE",
@@ -40,6 +45,8 @@ __all__ = [
     "StreamBatch",
     "denoise_audio",
     "process_frames",
+    "scan_chunk",
+    "frame_step",
     "init_batch_carry",
     "RnnModel",
     "ModelParseError",

@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``.  The
-library's name carries a hash of the sources, so it is built on first use
-and rebuilt whenever a source changes; nothing is built at import.  There
-is no fallback: a missing ``nvcc`` or a failed build raises.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``,
+all started together, and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes``.  The library's name
+carries a hash of the sources, so it is built on first use and rebuilt
+whenever a source changes; nothing is built at import.  There is no
+fallback: a missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -21,9 +22,9 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + (
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # per-kernel registers, shared memory and spills
 )
 
@@ -42,6 +43,13 @@ _SIGNATURES = {
     # batch, t_count, stream
     "nnt_frame_loop": (P,) * 7 + (P,) * 3 + (P,) * 9 + (P,) * 2 + (P,) + (P,) * 9
     + (I, I, P),
+    # windows, cand, pidx, rows, stream
+    "nnt_pitch_analysis_stacked": (P, P, P, I, P),
+    # tansig, int8 weights, offsets, acts, weight bytes; f, hv, hn, hd;
+    # out: hv, hn, hd, gains, vad; batch, stream
+    "nnt_rnn_step": (P, P, P, P, I) + (P,) * 4 + (P,) * 5 + (I, P),
+    # mem, lag, out, batch, stream
+    "nnt_window_at_lag": (P, P, P, I, P),
 }
 
 last_build_seconds = 0.0
@@ -67,6 +75,17 @@ def _nvcc() -> str:
     return found
 
 
+def _run_all(cmds: list) -> list:
+    """Run the commands side by side; returns their (cmd, returncode,
+    output) in order."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    return [(c, p.returncode, out) for c, p, out in zip(cmds, procs, outs)]
+
+
 def build() -> pathlib.Path:
     """Compile the kernels if the library for the current sources is
     missing; returns its path."""
@@ -76,17 +95,19 @@ def build() -> pathlib.Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)
-    last_build_log = proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [pathlib.Path(tmpdir) / f"{src.stem}.o" for src in _sources()]
+        steps = [_run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                           for src, obj in zip(_sources(), objs)])]
+        tmp = pathlib.Path(tmpdir) / lib.name
+        if all(rc == 0 for _, rc, _ in steps[0]):
+            steps.append(_run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]]))
+        for cmd, rc, out in (r for step in steps for r in step):
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+        os.replace(tmp, lib)
+    last_build_log = "".join(out for step in steps for _, _, out in step)
     last_build_seconds = time.perf_counter() - t0
     return lib
 

@@ -7,7 +7,8 @@
 // history shift, lag-0 windowed DFT + band energies + floored log spectrum
 // + DCT cepstrum + silence gate, octave removal from the candidate lanes,
 // the window at the pitch lag and its DFT, the 42 features, silence
-// masking, the RNN with the 201-entry tansig table, the pitch comb filter
+// masking, the RNN with the 201-entry tansig table (the stages of
+// rnn_cell.cuh, shared with kernel K5), the pitch comb filter
 // and renormalization, the gain hangover and interpolation, the inverse
 // DFT and overlap-add.
 //
@@ -35,6 +36,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "rnn_cell.cuh"
+
 namespace {
 
 constexpr int S = 8;  // streams per block
@@ -55,7 +58,6 @@ constexpr int OFF_PERIOD = 481;
 constexpr int OFF_PGAIN = 482;
 constexpr int N_CAND = 105;
 constexpr int DD = 24, DV = 24, DN = 48, DH = 96, DG = 22;
-constexpr float SCALE = 0.00390625f;          // 1/256 weight scale
 constexpr float DCT_SCALE = 0.30151134729385376f;  // f32(sqrt(2/22))
 
 // Per-stream block of shared memory (offsets in floats).
@@ -87,6 +89,7 @@ constexpr int U_FLOATS = 2 * S * PACKED;
 constexpr int TAB = 204;  // tansig table, 201 entries
 constexpr int N_INTS = S + 16 + 8;
 constexpr size_t SMEM_BYTES = (size_t)(U_FLOATS + TAB + S * PS) * sizeof(float) + N_INTS * sizeof(int);
+using Cell = rnn_cell::Layout<S, THREADS, PS, P_GS, P_GIN>;
 
 struct Args {
   const float *F, *IV, *bcorr;
@@ -104,26 +107,6 @@ struct Args {
   float* pg_o;
   int B, T;
 };
-
-// ops/activations.py::tansig_approx with the table; NaN -> 1.
-__device__ float tansig(float x, const float* tab) {
-  if (!(x < 8.f)) return 1.f;
-  if (!(x > -8.f)) return -1.f;
-  const float sign = x < 0.f ? -1.f : 1.f;
-  const float ax = fminf(fabsf(x), 7.99f);
-  const float fi = floorf(__fadd_rn(0.5f, __fmul_rn(25.f, ax)));
-  const float frac = __fsub_rn(ax, __fmul_rn(0.04f, fi));
-  float y = tab[(int)fi];
-  const float dy = __fsub_rn(1.f, __fmul_rn(y, y));
-  y = __fadd_rn(y, __fmul_rn(__fmul_rn(frac, dy), __fsub_rn(1.f, __fmul_rn(y, frac))));
-  return sign * y;
-}
-
-__device__ float act(float x, int code, const float* tab) {
-  if (code == 0) return tansig(x, tab);
-  if (code == 1) return __fadd_rn(0.5f, __fmul_rn(0.5f, tansig(__fmul_rn(0.5f, x), tab)));
-  return fmaxf(x, 0.f);
-}
 
 // Element q of stream b's input history after frame t's shift.
 __device__ __forceinline__ float hist(const Args& a, int b, int t, int q) {
@@ -193,67 +176,6 @@ __device__ void remove_doubling(const float* cand, int last_period, float last_g
                                                                : 0.f;
   *gain = fminf(pg, g);
   *period = (int)fmaxf(2.f * t + offset, 60.f);
-}
-
-__device__ void dense_layer(float* ps, int in_off, int nin, const int8_t* w, const int8_t* bias,
-                            int nout, int out_off, int code, const float* tab) {
-  for (int idx = threadIdx.x; idx < S * nout; idx += THREADS) {
-    const int s = idx / nout, j = idx % nout;
-    const float* x = ps + s * PS + in_off;
-    float acc = 0.f;
-    for (int i = 0; i < nin; ++i) acc = fmaf(x[i], (float)w[i * nout + j], acc);
-    ps[s * PS + out_off + j] = act(__fmul_rn(SCALE, __fadd_rn((float)bias[j], acc)), code, tab);
-  }
-}
-
-// GRU, first half: z, r*h and the candidate's input pre-activation into
-// the gate scratch (rnn.rs:293-330, r pre-multiplied by the state).
-__device__ void gru_gates(float* ps, int in_off, int nin, int h_off, int n, const int8_t* wi,
-                          const int8_t* wr, const int8_t* bias, const float* tab) {
-  const int n3 = 3 * n;
-  for (int idx = threadIdx.x; idx < S * n3; idx += THREADS) {
-    const int s = idx / n3, j = idx % n3;
-    const float* x = ps + s * PS + in_off;
-    const float* h = ps + s * PS + h_off;
-    float* gs = ps + s * PS + P_GS;
-    float gi = 0.f;
-    for (int i = 0; i < nin; ++i) gi = fmaf(x[i], (float)wi[i * n3 + j], gi);
-    const float pre = __fadd_rn((float)bias[j], gi);
-    if (j < 2 * n) {
-      float rz = 0.f;
-      for (int i = 0; i < n; ++i) rz = fmaf(h[i], (float)wr[i * n3 + j], rz);
-      const float sg = act(__fmul_rn(SCALE, __fadd_rn(pre, rz)), 1, tab);
-      gs[j] = j < n ? sg : __fmul_rn(h[j - n], sg);
-    } else {
-      gs[j] = pre;
-    }
-  }
-}
-
-// GRU, second half: h' = z h + (1 - z) act(candidate).
-__device__ void gru_out(float* ps, int h_off, int n, const int8_t* wr, int code, int out_off,
-                        const float* tab) {
-  const int n3 = 3 * n;
-  for (int idx = threadIdx.x; idx < S * n; idx += THREADS) {
-    const int s = idx / n, j = idx % n;
-    const float* gs = ps + s * PS + P_GS;
-    const float h = ps[s * PS + h_off + j];
-    float rec = 0.f;
-    for (int i = 0; i < n; ++i) rec = fmaf(gs[n + i], (float)wr[i * n3 + 2 * n + j], rec);
-    const float hh = act(__fmul_rn(SCALE, __fadd_rn(gs[2 * n + j], rec)), code, tab);
-    const float z = gs[j];
-    ps[s * PS + out_off + j] = __fadd_rn(__fmul_rn(z, h), __fmul_rn(__fsub_rn(1.f, z), hh));
-  }
-}
-
-// Copy input segments into the per-stream GRU input vector.
-__device__ void gather_input(float* ps, int off0, int n0, int off1, int n1, int off2, int n2) {
-  const int n = n0 + n1 + n2;
-  for (int idx = threadIdx.x; idx < S * n; idx += THREADS) {
-    const int s = idx / n, i = idx % n;
-    float* p = ps + s * PS;
-    p[P_GIN + i] = i < n0 ? p[off0 + i] : i < n0 + n1 ? p[off1 + i - n0] : p[off2 + i - n0 - n1];
-  }
 }
 
 __global__ void __launch_bounds__(THREADS, 2) frame_kernel(const Args a) {
@@ -465,26 +387,26 @@ __global__ void __launch_bounds__(THREADS, 2) frame_kernel(const Args a) {
       for (int l = CEPS * NB - 1; l >= NB; --l) p[P_CM + l] = p[P_CM + l - NB];
       for (int i = 0; i < NB; ++i) p[P_CM + i] = p[P_CEPS + i];
     }
-    dense_layer(ps, P_FEAT, NF, W + woff[0], W + woff[1], DD, P_D, acts[0], tab);
+    rnn_cell::dense_layer<Cell>(ps, P_FEAT, NF, W + woff[0], W + woff[1], DD, P_D, acts[0], tab);
     __syncthreads();
-    gru_gates(ps, P_D, DD, P_HV, DV, W + woff[2], W + woff[3], W + woff[4], tab);
+    rnn_cell::gru_gates<Cell>(ps, P_D, DD, P_HV, DV, W + woff[2], W + woff[3], W + woff[4], tab);
     __syncthreads();
-    gru_out(ps, P_HV, DV, W + woff[3], acts[1], P_HV2, tab);
+    rnn_cell::gru_out<Cell>(ps, P_HV, DV, W + woff[3], acts[1], P_HV2, tab);
     __syncthreads();
-    dense_layer(ps, P_HV2, DV, W + woff[13], W + woff[14], 1, P_MISC + 1, acts[5], tab);
-    gather_input(ps, P_D, DD, P_HV2, DV, P_FEAT, NF);
+    rnn_cell::dense_layer<Cell>(ps, P_HV2, DV, W + woff[13], W + woff[14], 1, P_MISC + 1, acts[5], tab);
+    rnn_cell::gather_input<Cell>(ps, P_D, DD, P_HV2, DV, P_FEAT, NF);
     __syncthreads();
-    gru_gates(ps, P_GIN, DD + DV + NF, P_HN, DN, W + woff[5], W + woff[6], W + woff[7], tab);
+    rnn_cell::gru_gates<Cell>(ps, P_GIN, DD + DV + NF, P_HN, DN, W + woff[5], W + woff[6], W + woff[7], tab);
     __syncthreads();
-    gru_out(ps, P_HN, DN, W + woff[6], acts[2], P_HN2, tab);
+    rnn_cell::gru_out<Cell>(ps, P_HN, DN, W + woff[6], acts[2], P_HN2, tab);
     __syncthreads();
-    gather_input(ps, P_HV2, DV, P_HN2, DN, P_FEAT, NF);
+    rnn_cell::gather_input<Cell>(ps, P_HV2, DV, P_HN2, DN, P_FEAT, NF);
     __syncthreads();
-    gru_gates(ps, P_GIN, DV + DN + NF, P_HD, DH, W + woff[8], W + woff[9], W + woff[10], tab);
+    rnn_cell::gru_gates<Cell>(ps, P_GIN, DV + DN + NF, P_HD, DH, W + woff[8], W + woff[9], W + woff[10], tab);
     __syncthreads();
-    gru_out(ps, P_HD, DH, W + woff[9], acts[3], P_HD2, tab);
+    rnn_cell::gru_out<Cell>(ps, P_HD, DH, W + woff[9], acts[3], P_HD2, tab);
     __syncthreads();
-    dense_layer(ps, P_HD2, DH, W + woff[11], W + woff[12], DG, P_GAINS, acts[4], tab);
+    rnn_cell::dense_layer<Cell>(ps, P_HD2, DH, W + woff[11], W + woff[12], DG, P_GAINS, acts[4], tab);
     // silence keeps the GRU states
     for (int idx = tid; idx < S * (DV + DN + DH); idx += THREADS) {
       const int s = idx / (DV + DN + DH), i = idx % (DV + DN + DH);

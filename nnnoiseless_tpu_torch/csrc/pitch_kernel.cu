@@ -14,6 +14,13 @@
 //     the coarse picks, pseudo-interpolation, and the 105 octave-removal
 //     candidate lanes (ops/pitch.py::doubling_candidates layout).
 //
+// Kernel K3 is the same device code behind a second entry point,
+// nnt_pitch_analysis_stacked: it replaces ops/pitch_kernel.py::
+// pitch_analysis_pallas, which takes R windows already stacked (R, 864)
+// with nothing patched (the per-frame path's one window per stream).  Its
+// design and bounds are K1's, one block per window; at R = 1 it is one
+// block on one SM, and latency.
+//
 // Layout.  K1 has no cross-frame carry: the TPU kernel's sequential T grid
 // only saved HBM traffic on overlapping windows.  Here one thread block
 // owns one (stream, frame) window, so B*T blocks (~410 K at B=4096, T=100)
@@ -103,8 +110,10 @@ __device__ __forceinline__ void warp_sums(float v, float* red, int k) {
   if ((threadIdx.x & 31) == 0) red[k * WARPS + threadIdx.x / 32] = v;
 }
 
+// Window t of stream b starts at ds[b * ds_stride + first + 240 t]; lane 0
+// is w0[t * B + b], or the window's own sample when w0 is null.
 __global__ void __launch_bounds__(THREADS)
-pitch_kernel(const float* __restrict__ ds, int ds_stride, const float* __restrict__ w0,
+pitch_kernel(const float* __restrict__ ds, int ds_stride, int first, const float* __restrict__ w0,
              float* __restrict__ cand, int* __restrict__ pidx_out, int B, int T) {
   __shared__ float x[N_DS];  // raw window
   __shared__ float y[N_DS];  // whitened window
@@ -122,8 +131,8 @@ pitch_kernel(const float* __restrict__ ds, int ds_stride, const float* __restric
   const int t = blockIdx.x % T;
   const int row = t * B + b;  // time-major output row
 
-  const float* src = ds + (size_t)b * ds_stride + DS_STEP * (t + 1);
-  for (int i = tid; i < N_DS; i += THREADS) x[i] = i == 0 ? w0[row] : src[i];
+  const float* src = ds + (size_t)b * ds_stride + first + DS_STEP * t;
+  for (int i = tid; i < N_DS; i += THREADS) x[i] = i == 0 && w0 != nullptr ? w0[row] : src[i];
   __syncthreads();
 
   // ---- whitening (ops/pitch.py::whiten, pitch.rs:448-483) ----------------
@@ -299,7 +308,18 @@ pitch_kernel(const float* __restrict__ ds, int ds_stride, const float* __restric
 // cand: (T, B, 105); pidx: (T, B).  Returns cudaGetLastError().
 extern "C" int nnt_pitch_analysis(const float* ds, int ds_stride, const float* w0, float* cand,
                                   int* pidx, int B, int T, void* stream) {
-  pitch_kernel<<<B * T, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(ds, ds_stride, w0, cand,
-                                                                        pidx, B, T);
+  pitch_kernel<<<B * T, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(ds, ds_stride, DS_STEP, w0,
+                                                                        cand, pidx, B, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel K3, the counterpart of nnnoiseless_tpu/ops/pitch_kernel.py::
+// pitch_analysis_pallas: the same device code on R pre-stacked windows
+// (R, 864), each its own frame (T = 1, lane 0 unpatched); cand (R, 105),
+// pidx (R,).  Returns cudaGetLastError().
+extern "C" int nnt_pitch_analysis_stacked(const float* windows, float* cand, int* pidx, int R,
+                                          void* stream) {
+  pitch_kernel<<<R, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(windows, N_DS, 0, nullptr,
+                                                                    cand, pidx, R, 1);
   return static_cast<int>(cudaGetLastError());
 }

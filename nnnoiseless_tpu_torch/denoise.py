@@ -1,12 +1,17 @@
-"""Public denoising API: the batched two-phase engine and its wrappers.
+"""Public denoising API: the two batched engines, the per-frame path, and
+their wrappers.
 
 * :func:`process_frames` runs (B, T, 480) frames (or (T, 480) for one
-  stream) through two phases per chunk: :func:`chunk.precompute_chunk`
-  (biquad, decimation, kernel K1) and :func:`ops.frame_kernel.run_frame_loop`
-  (kernel K2), with the biquad carry patched from the precompute.
-* :class:`StreamBatch`, :func:`denoise_audio` and :class:`DenoiseState`
-  all run on it; chunking never changes the output, because the carry is
-  the complete inter-frame dependency.
+  stream) through the engine its :class:`Engine` chose once:
+  the two-phase engine, :func:`chunk.precompute_chunk` (biquad,
+  decimation, kernel K1) then :func:`ops.frame_kernel.run_frame_loop`
+  (kernel K2); or the scan engine, :func:`scan_chunk`.  Either patches the
+  biquad carry from the precompute.
+* :class:`StreamBatch` and :func:`denoise_audio` run on it; chunking never
+  changes the output, because the carry is the complete inter-frame
+  dependency.
+* :meth:`DenoiseState.process_frame` is the reference's per-frame API: one
+  :func:`pipeline.frame_step` at B=1 (kernels K3, K5, K6 on CUDA).
 
 Audio convention: f32 samples in the i16 range, 48 kHz mono per stream.
 Every entry point takes the device as an argument; on a CUDA device the
@@ -20,12 +25,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import flags
 from .chunk import precompute_chunk
 from .constants import FRAME_SIZE
 from .model import ModelMeta, RnnModel
-from .ops.frame_kernel import pack_weights, run_frame_loop
+from .ops.frame_kernel import run_frame_loop
 from .ops.rnn import Rnn
-from .pipeline import DenoiseCarry, init_carry
+from .ops.rnn_kernel import pack_weights
+from .pipeline import DenoiseCarry, FramePre, frame_step, frame_step_hoisted, init_carry
 
 # Full-f32 products everywhere: the Toeplitz biquad loses up to ~160 i16
 # units at TF32, and the DFT bases are validated only at f32.
@@ -34,15 +41,25 @@ torch.backends.cudnn.allow_tf32 = False
 
 
 class Engine:
-    """A model's module state on one device, plus the kernel's packed int8
-    weights (built once)."""
+    """A model's module state on one device, the engine that serves it, and
+    the kernels' packed int8 weights (built once).
 
-    def __init__(self, model: RnnModel, device):
+    ``two_phase`` (precompute, then kernel K2) when ``fused`` is set and the
+    model has the standard topology, the rule of the JAX package's
+    ``two_phase_available``/``fused_scan_available``; the scan engine
+    (:func:`scan_chunk`) otherwise.  ``fused`` defaults to ``NNT_FUSED``.
+    """
+
+    def __init__(self, model: RnnModel, device, fused: bool = flags.FUSED):
         self.model = model
         self.device = torch.device(device)
         self.rnn = Rnn.from_params(model.params, model.meta, self.device)
+        standard = self.rnn.standard_topology()
+        self.two_phase = fused and standard
         self.weights = (
-            pack_weights(self.rnn, self.device) if self.device.type == "cuda" else None
+            pack_weights(self.rnn, self.device)
+            if self.device.type == "cuda" and standard
+            else None
         )
 
 
@@ -59,13 +76,44 @@ def init_batch_carry(meta: ModelMeta, batch: int, device) -> DenoiseCarry:
     return init_carry(meta, batch, device)
 
 
+def _with_hp_mem(carry: DenoiseCarry, hp_mem: torch.Tensor) -> DenoiseCarry:
+    return carry._replace(feat=carry.feat._replace(hp_mem=hp_mem))
+
+
+def scan_chunk(engine: Engine, carry: DenoiseCarry, frames: torch.Tensor,
+               return_trace: bool = False):
+    """The scan engine on one chunk (B, T, 480) -> (carry', out (B, T, 480),
+    vad (B, T)), plus (periods (B, T) int32, pitch gains (B, T)) with
+    ``return_trace``, as ``ops.frame_kernel.run_frame_loop`` gives them.
+
+    The JAX package's ``_scan_batch``: the precompute with its lag-0
+    products (kernel K1 on CUDA), then a loop over the T frames of
+    :func:`pipeline.frame_step_hoisted` (kernels K5 and K6 on CUDA)."""
+    pre, hp_out = precompute_chunk(carry.feat.input_mem, carry.feat.hp_mem, frames, lag0=True)
+    outs, vads, periods, gains = [], [], [], []
+    for t in range(frames.shape[1]):
+        carry, out, vad = frame_step_hoisted(
+            engine.rnn, carry, FramePre(*(f[t] for f in pre)), engine.weights
+        )
+        outs.append(out)
+        vads.append(vad)
+        periods.append(carry.feat.pitch_period)
+        gains.append(carry.feat.pitch_gain)
+    result = (_with_hp_mem(carry, hp_out), torch.stack(outs, 1), torch.stack(vads, 1))
+    if return_trace:
+        return (*result, (torch.stack(periods, 1), torch.stack(gains, 1)))
+    return result
+
+
 def process_chunk(engine: Engine, carry: DenoiseCarry, frames: torch.Tensor):
     """One chunk (B, T, 480) on the engine's device -> (carry', out
-    (B, T, 480), vad (B, T)): phase 1, then phase 2 with the biquad carry
-    patched from phase 1."""
+    (B, T, 480), vad (B, T)): the scan engine, or the two-phase engine,
+    whose phase 2 takes the biquad carry patched from phase 1."""
+    if not engine.two_phase:
+        return scan_chunk(engine, carry, frames)
     pre, hp_out = precompute_chunk(carry.feat.input_mem, carry.feat.hp_mem, frames)
     carry2, out, vad = run_frame_loop(engine.rnn, carry, pre, engine.weights)
-    return carry2._replace(feat=carry2.feat._replace(hp_mem=hp_out)), out, vad
+    return _with_hp_mem(carry2, hp_out), out, vad
 
 
 def process_frames(model, carry: DenoiseCarry, frames, device=None):
@@ -92,8 +140,10 @@ class DenoiseState:
     >>> state = DenoiseState(device="cuda")
     >>> out, vad = state.process_frame(frame)   # frame: 480 f32 samples
 
-    Each call runs the batched engine at B=1.  As with the reference, the
-    first output frame holds fade-in artifacts and is usually dropped.
+    :meth:`process_frame` runs :func:`pipeline.frame_step` at B=1, as the
+    JAX package does; :meth:`process_chunk` runs the batched engine at B=1.
+    As with the reference, the first output frame holds fade-in artifacts
+    and is usually dropped.
     """
 
     FRAME_SIZE = FRAME_SIZE
@@ -110,8 +160,9 @@ class DenoiseState:
         frame = np.asarray(frame, np.float32)
         if frame.shape != (FRAME_SIZE,):
             raise ValueError(f"expected frame of shape ({FRAME_SIZE},)")
-        out, vad = self.process_chunk(frame[None])
-        return out[0], float(vad[0])
+        x = torch.as_tensor(frame[None], device=self.engine.device)
+        self.carry, out, vad = frame_step(self.engine.rnn, self.carry, x, self.engine.weights)
+        return out[0].cpu().numpy(), float(vad[0])
 
     def process_chunk(self, frames) -> tuple[np.ndarray, np.ndarray]:
         """Denoise (T, 480) frames in one engine call; returns (out, vad)."""

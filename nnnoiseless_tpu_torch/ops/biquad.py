@@ -1,4 +1,4 @@
-"""The high-pass biquad over a whole chunk as a few f32 products.
+"""The high-pass biquad: per sample, per frame, and over a whole chunk.
 
 Convention (reference src/util.rs:73-127): both coefficient pairs have an
 implicit leading 1, and
@@ -7,12 +7,14 @@ implicit leading 1, and
     mem0' = mem1 + (b0*x[n] - a0*y[n])
     mem1' =        b1*x[n] - a1*y[n]
 
-The filter is linear and time-invariant, so the whole chunk is an (n, n)
-Toeplitz product per sub-frame plus a closed-form carry propagation across
-sub-frames, all tables built in f64 (the construction of
-``nnnoiseless_tpu/ops/biquad.py``).  The products must run in full f32: the
-Toeplitz rows cancel large partial sums, so TF32 or bf16 loses up to ~160
-i16 units (the package sets ``allow_tf32 = False``).
+:func:`biquad_filter` runs that recurrence sample by sample.  The filter
+is linear and time-invariant, so one frame is an (n, n) Toeplitz product
+plus rank-2 carry terms (:func:`biquad_filter_dense`), and a whole chunk
+is that product per sub-frame plus a closed-form carry propagation across
+sub-frames (:func:`biquad_filter_frames`), all tables built in f64 (the
+construction of ``nnnoiseless_tpu/ops/biquad.py``).  The products must
+run in full f32: the Toeplitz rows cancel large partial sums, so TF32 or
+bf16 loses up to ~160 i16 units (the package sets ``allow_tf32 = False``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,36 @@ def _tables_f64(a0, a1, b0, b1, n):
     H = powers[n - 1 :: -1, :, :] @ c
     Q = powers[n].T
     return W, P, H, Q
+
+
+def biquad_filter(x: torch.Tensor, mem: torch.Tensor, a, b) -> tuple[torch.Tensor, torch.Tensor]:
+    """Filter ``x`` (..., n) with carry ``mem`` (..., 2) one sample at a
+    time, in f32; returns (y, mem')."""
+    a0, a1, b0, b1 = (float(v) for v in (a[0], a[1], b[0], b[1]))
+    m0, m1 = mem[..., 0], mem[..., 1]
+    ys = []
+    for xn in x.unbind(-1):
+        y = xn + m0
+        m0, m1 = m1 + (b0 * xn - a0 * y), b1 * xn - a1 * y
+        ys.append(y)
+    return torch.stack(ys, dim=-1), torch.stack([m0, m1], dim=-1)
+
+
+@functools.lru_cache(maxsize=8)
+def _linear_tables(a0, a1, b0, b1, n):
+    """:func:`_tables_f64` cast to f32 numpy: (W, P, H, Q)."""
+    return tuple(np.ascontiguousarray(m, np.float32) for m in _tables_f64(a0, a1, b0, b1, n))
+
+
+def biquad_filter_dense(x: torch.Tensor, mem: torch.Tensor, a, b) -> tuple[torch.Tensor, torch.Tensor]:
+    """One block (..., n) with carry (..., 2) as f32 products:
+    y = x + x @ W + mem @ P, mem' = x @ H + mem @ Q."""
+    W, P, H, Q = (
+        torch.as_tensor(t, device=x.device)
+        for t in _linear_tables(float(a[0]), float(a[1]), float(b[0]), float(b[1]), x.shape[-1])
+    )
+    y = x + torch.matmul(x, W) + torch.matmul(mem, P)
+    return y, torch.matmul(x, H) + torch.matmul(mem, Q)
 
 
 @functools.lru_cache(maxsize=8)

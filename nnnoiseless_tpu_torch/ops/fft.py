@@ -71,3 +71,15 @@ def dft_bases(device: torch.device):
         torch.as_tensor(fwd, device=device),
         torch.as_tensor(np.concatenate([iv1, iv2], axis=1), device=device),
     )
+
+
+def forward_transform(frame: torch.Tensor) -> torch.Tensor:
+    """Window a (..., 960) frame -> packed (..., 962) spectrum [re | im],
+    ``rfft(frame * window) * wnorm`` as one f32 product with F."""
+    return torch.matmul(frame, dft_bases(frame.device)[0])
+
+
+def inverse_transform(spectrum: torch.Tensor) -> torch.Tensor:
+    """Packed (..., 962) spectrum -> windowed (..., 960) frame: the
+    hermitian inverse DFT / 2 times the window, one f32 product with IV."""
+    return torch.matmul(spectrum, dft_bases(spectrum.device)[1])

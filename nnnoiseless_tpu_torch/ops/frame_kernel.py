@@ -33,20 +33,16 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..pipeline import DenoiseCarry, FeatureState, log_spectrum
-from ..constants import (
-    CEPS_MEM,
-    FRAME_SIZE,
-    NB_BANDS,
-    NB_DELTA_CEPS,
-    PITCH_BUF_SIZE,
-    WINDOW_SIZE,
+from ..pipeline import (
+    DenoiseCarry, FeatureState, _pitch_filter, cepstrum, frame_features, log_spectrum,
 )
+from ..constants import CEPS_MEM, FRAME_SIZE, NB_BANDS, PITCH_BUF_SIZE, WINDOW_SIZE
 from ..tables import BAND_CORR_MATRIX, BAND_INTERP_MATRIX, DCT_TABLE, TANSIG_TABLE
-from .bands import band_corr, band_energies, dct22, interp_band_gain
+from .bands import band_energies, interp_band_gain
 from .fft import dft_bases
 from .pitch import N_CAND, remove_doubling_from_candidates
 from .rnn import Rnn, RnnState
+from .rnn_kernel import pack_weights
 
 OFF_VAD = 480
 OFF_PERIOD = 481
@@ -72,64 +68,31 @@ CARRY_SHAPES = (
 
 
 def frame_loop_plain(rnn: Rnn, carry: tuple, filt: torch.Tensor, cand: torch.Tensor):
-    """The plain PyTorch version: a loop over T of batched tensor ops."""
+    """The plain PyTorch version: a loop over T of batched tensor ops (the
+    analysis tail and the comb filter are pipeline.py's)."""
     mem, synth, cmem, hv, hn, hd, lastg, period, pgain = carry
     fwd, inv = dft_bases(filt.device)
     t_count, b, _ = filt.shape
     packed = torch.zeros((t_count, b, OUT_LANES), dtype=torch.float32, device=filt.device)
     cmem = cmem.reshape(b, CEPS_MEM, NB_BANDS)
     lanes960 = torch.arange(WINDOW_SIZE, device=filt.device)
-    eye = torch.eye(CEPS_MEM, device=filt.device) * 1e15
-    dly = NB_DELTA_CEPS
     for t in range(t_count):
         mem = torch.cat([mem[:, FRAME_SIZE:], filt[t]], dim=1)
-
         x = torch.matmul(mem[:, _OFF:], fwd)  # (B, 962) lag-0 spectrum
         ex = band_energies(x)
         ly, energy = log_spectrum(ex)
         sil = energy < 0.04
-        ceps = dct22(ly)
-        ceps[:, 0] += -12.0
-        ceps[:, 1] += -4.0
-
         period, pgain = remove_doubling_from_candidates(cand[t], period, pgain)
-
         idx = (_OFF - period.to(torch.int64))[:, None] + lanes960
         p = torch.matmul(mem.gather(1, idx), fwd)  # spectrum at the pitch lag
         ep = band_energies(p)
-        exp = band_corr(x, p) / torch.sqrt(0.001 + ex * ep)
-
-        f_pitch = dct22(exp)[:, :dly]
-        f_pitch[:, 0] += -1.3
-        f_pitch[:, 1] += -0.9
-        f_period = 0.01 * (period.to(torch.float32) - 300.0)
-        new_cm = torch.cat([ceps[:, None], cmem[:, :-1]], dim=1)
-        c0, c1, c2 = ceps[:, :dly], new_cm[:, 1, :dly], new_cm[:, 2, :dly]
-        diff = new_cm[:, :, None, :] - new_cm[:, None, :, :]
-        dist = (diff * diff).sum(-1) + eye
-        f_spec = dist.min(dim=2).values.sum(-1) / float(CEPS_MEM) - 2.1
-        features = torch.cat(
-            [c0 + c1 + c2, ceps[:, dly:], c0 - c2, c0 - 2.0 * c1 + c2,
-             f_pitch, f_period[:, None], f_spec[:, None]],
-            dim=1,
-        )
-        features = torch.where(sil[:, None], 0.0, features)
-        cmem = torch.where(sil[:, None, None], cmem, new_cm)
+        features, exp, cmem = frame_features(cmem, x, p, ex, ep, sil, cepstrum(ly), period)
 
         st, gains, vad = rnn(RnnState(hv, hn, hd), features)
         s1 = sil[:, None]
-        hv = torch.where(s1, hv, st.vad)
-        hn = torch.where(s1, hn, st.noise)
-        hd = torch.where(s1, hd, st.denoise)
-
-        g_sq, exp_sq = gains * gains, exp * exp
-        r = torch.where(
-            exp > gains, 1.0, exp_sq * (1.0 - g_sq) / (0.001 + g_sq * (1.0 - exp_sq))
-        )
-        r = torch.sqrt(torch.clamp(r, 0.0, 1.0)) * torch.sqrt(ex / (1e-8 + ep))
-        x1 = x + p * interp_band_gain(r)
-        x_comb = x1 * interp_band_gain(torch.sqrt(ex / (1e-8 + band_energies(x1))))
+        hv, hn, hd = (torch.where(s1, old, new) for old, new in zip((hv, hn, hd), st))
         g2 = torch.maximum(gains, 0.6 * lastg)
+        x_comb = _pitch_filter(x, p, ex, ep, exp, gains)
         x_final = torch.where(s1, x, x_comb * interp_band_gain(g2))
         lastg = torch.where(s1, lastg, g2)
 
@@ -160,33 +123,6 @@ def _tables(device: torch.device):
     )
 
 
-_WEIGHT_ORDER = (
-    ("input_dense", "w"), ("input_dense", "b"),
-    ("vad_gru", "wi"), ("vad_gru", "wr"), ("vad_gru", "b"),
-    ("noise_gru", "wi"), ("noise_gru", "wr"), ("noise_gru", "b"),
-    ("denoise_gru", "wi"), ("denoise_gru", "wr"), ("denoise_gru", "b"),
-    ("denoise_output", "w"), ("denoise_output", "b"),
-    ("vad_output", "w"), ("vad_output", "b"),
-)
-
-
-def pack_weights(rnn: Rnn, device: torch.device):
-    """(int8 weights concatenated in kernel order, int32 offsets, int32
-    activation codes) on ``device``.  Every weight of a ``.rnn`` model is an
-    int8 value, so int8 storage is exact; other weights raise."""
-    parts = [getattr(rnn, layer).get_buffer(name).reshape(-1) for layer, name in _WEIGHT_ORDER]
-    flat = torch.cat(parts).to(device)
-    as_i8 = flat.to(torch.int8)
-    if not torch.equal(as_i8.to(flat.dtype), flat):
-        raise ValueError("the frame kernel needs int8-valued weights")
-    offsets = np.cumsum([0] + [p.numel() for p in parts[:-1]]).astype(np.int32)
-    return (
-        as_i8,
-        torch.as_tensor(offsets, device=device),
-        torch.as_tensor(np.asarray(rnn.meta.acts(), np.int32), device=device),
-    )
-
-
 def _check(carry, filt, cand):
     if filt.ndim != 3 or filt.shape[2] != FRAME_SIZE:
         raise ValueError(f"filt must be (T, B, {FRAME_SIZE}), got {tuple(filt.shape)}")
@@ -207,7 +143,8 @@ def _check(carry, filt, cand):
 
 
 def frame_loop_cuda(rnn: Rnn, weights: tuple, carry: tuple, filt, cand):
-    """Launch K2 on the current CUDA stream.  ``weights``: pack_weights."""
+    """Launch K2 on the current CUDA stream.  ``weights``:
+    ops/rnn_kernel.py::pack_weights."""
     global launches
     _check(carry, filt, cand)
     if not rnn.standard_topology():

@@ -46,6 +46,15 @@ LAG_WINDOW = [float(np.float32((0.008 * i) * (0.008 * i))) for i in range(5)]
 _ROW_CHUNK = 1 << 16
 
 
+def downsample_2x(x: torch.Tensor) -> torch.Tensor:
+    """[1/4, 1/2, 1/4] decimation by 2: (..., 1728) -> (..., 864), with
+    x[-1] = 0 (pitch.rs:455-458)."""
+    even = x[..., 0::2]
+    odd = x[..., 1::2]
+    prev_odd = F.pad(odd[..., :-1], (1, 0))
+    return ((prev_odd + odd) * 0.5 + even) * 0.5
+
+
 def lpc4(ac: list) -> list:
     """Order-4 Levinson-Durbin with the reference's early-exit semantics
     (pitch.rs:257-292): zeros when ac[0] == 0, and every update frozen once
@@ -298,3 +307,16 @@ def pitch_chain(windows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     energies = window_energies(y, PITCH_FRAME_DS, N_LAGS)
     pidx = PITCH_MAX_PERIOD - pitch_search(y, corr, energies)
     return doubling_candidates(corr, energies, pidx), pidx.to(torch.int32)
+
+
+def pitch_process(
+    input_mem: torch.Tensor, last_period: torch.Tensor, last_gain: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-frame pitch analysis of (B, 1728) input histories (reference
+    PitchFinder::process): decimation, the window's analysis (kernel K3 on
+    CUDA tensors, :func:`pitch_chain` on CPU ones) and octave removal with
+    the previous (period, gain).  Returns (period (B,) int32, gain (B,))."""
+    from .pitch_kernel import pitch_analysis_stacked
+
+    cand, _ = pitch_analysis_stacked(downsample_2x(input_mem))
+    return remove_doubling_from_candidates(cand, last_period, last_gain)

@@ -1,4 +1,4 @@
-"""Kernel K1: per-frame pitch analysis over a chunk's decimated signal.
+"""Kernels K1 and K3: pitch analysis of 2x-decimated 864-sample windows.
 
 Replaces ``nnnoiseless_tpu/ops/pitch_kernel.py::pitch_analysis_stream``.
 Frame t of stream b reads the 864-sample window
@@ -10,6 +10,12 @@ index.
 
 :func:`pitch_analysis_stream` launches ``csrc/pitch_kernel.cu`` for CUDA
 tensors and runs :func:`pitch_analysis_plain` for CPU tensors.
+
+K3 replaces ``pitch_analysis_pallas`` there: the same analysis of R windows
+already stacked (R, 864), with no lane patched, one per stream on the
+per-frame path.  :func:`pitch_analysis_stacked` launches it through a
+second entry point of the same source for CUDA tensors and runs
+``ops/pitch.py::pitch_chain`` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,8 +29,10 @@ from .pitch import N_CAND, pitch_chain
 N_DS = PITCH_BUF_SIZE // 2  # 864
 DS_STEP = 240  # decimated samples per frame
 
-# Kernel launches since the last reset (the plain version does not count).
+# Kernel launches since the last reset (the plain versions do not count):
+# K1 in ``launches``, K3 in ``stacked_launches``.
 launches = 0
+stacked_launches = 0
 
 
 def window_stack(ds: torch.Tensor, w0: torch.Tensor, t_count: int) -> torch.Tensor:
@@ -85,3 +93,41 @@ def pitch_analysis_stream(ds: torch.Tensor, w0: torch.Tensor, t_count: int):
         raise ValueError(f"unsupported device {ds.device}")
     _check(ds, w0, t_count)
     return pitch_analysis_plain(ds, w0, t_count)
+
+
+def _check_stacked(windows):
+    if windows.dtype != torch.float32:
+        raise TypeError(f"windows must be float32, got {windows.dtype}")
+    if windows.ndim != 2 or windows.shape[1] != N_DS:
+        raise ValueError(f"windows must be (R, {N_DS}), got {tuple(windows.shape)}")
+
+
+def pitch_analysis_stacked_cuda(windows: torch.Tensor):
+    """Launch K3 on the current CUDA stream; returns (cand (R, 105),
+    pidx (R,) int32)."""
+    global stacked_launches
+    _check_stacked(windows)
+    if not windows.is_contiguous():
+        raise ValueError("windows must be contiguous")
+    r = windows.shape[0]
+    cand = torch.empty((r, N_CAND), dtype=torch.float32, device=windows.device)
+    pidx = torch.empty((r,), dtype=torch.int32, device=windows.device)
+    if r:
+        stream = torch.cuda.current_stream(windows.device).cuda_stream
+        err = _build.library().nnt_pitch_analysis_stacked(
+            windows.data_ptr(), cand.data_ptr(), pidx.data_ptr(), r, stream
+        )
+        _build.check(err, "nnt_pitch_analysis_stacked")
+        stacked_launches += 1
+    return cand, pidx
+
+
+def pitch_analysis_stacked(windows: torch.Tensor):
+    """(R, 864) raw decimated windows -> ((R, 105) candidate lanes, (R,)
+    int32 pitch index)."""
+    if windows.is_cuda:
+        return pitch_analysis_stacked_cuda(windows)
+    if windows.device.type != "cpu":
+        raise ValueError(f"unsupported device {windows.device}")
+    _check_stacked(windows)
+    return pitch_chain(windows)

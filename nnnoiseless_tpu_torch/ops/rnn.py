@@ -19,10 +19,9 @@ from torch import nn
 
 from ..constants import WEIGHTS_SCALE
 from ..model import GRU_LAYERS, LAYERS, RELU, SIGMOID, TANH, ModelMeta, params_from_numpy
+from . import rnn_kernel
 from .activations import relu, sigmoid_approx, tansig_approx
-
-# Standard topology, the only one the frame kernel is built for.
-DIMS = dict(f=42, d=24, v=24, n=48, h=96, g=22)
+from .rnn_kernel import DIMS
 
 
 def activate(x: torch.Tensor, activation: int) -> torch.Tensor:
@@ -113,3 +112,22 @@ class Rnn(nn.Module):
         den_h = self._gru("denoise_gru", state.denoise, torch.cat([vad_h, noise_h, features], -1))
         gains = self._dense("denoise_output", den_h)
         return RnnState(vad_h, noise_h, den_h), gains, vad[..., 0]
+
+
+def rnn_step(rnn: Rnn, state: RnnState, features: torch.Tensor, weights: tuple | None = None):
+    """One frame of (B, ...) streams: (new_state, gains (B, 22), vad (B,)).
+
+    The dispatch of ``nnnoiseless_tpu/ops/rnn.py::rnn_step``: a
+    standard-topology model on CUDA tensors runs kernel K5
+    (ops/rnn_kernel.py) with ``weights`` (its ``pack_weights``, packed here
+    when None); any other topology runs :meth:`Rnn.forward` on any device,
+    as the JAX package does; CPU tensors run :meth:`Rnn.forward`.
+    """
+    if features.is_cuda and rnn.standard_topology():
+        if weights is None:
+            weights = rnn_kernel.pack_weights(rnn, features.device)
+        hv, hn, hd, gains, vad = rnn_kernel.rnn_step_cuda(weights, *state, features)
+        return RnnState(hv, hn, hd), gains, vad
+    if features.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {features.device}")
+    return rnn(state, features)

@@ -7,7 +7,7 @@ a card (and without JAX) run::
 
 Bars: those of chip_smoke.py (pitch decisions may flip on near-ties, the
 sums run in another order than cuDNN's; waveforms as tests/conftest.py's
-accelerator bars).
+accelerator bars; the RNN cell within 2e-5, the window bit-exact).
 """
 
 import numpy as np
@@ -18,6 +18,10 @@ import nnnoiseless_tpu_torch as nt
 from nnnoiseless_tpu_torch.chunk import decimate, precompute_chunk
 from nnnoiseless_tpu_torch.ops import frame_kernel as fk
 from nnnoiseless_tpu_torch.ops import pitch_kernel as pk
+from nnnoiseless_tpu_torch.ops import rnn_kernel as rk
+from nnnoiseless_tpu_torch.ops import window as wk
+from nnnoiseless_tpu_torch.ops.pitch import downsample_2x, pitch_chain
+from nnnoiseless_tpu_torch.ops.rnn import RnnState
 
 pytestmark = pytest.mark.cuda
 
@@ -85,6 +89,73 @@ def test_engine_golden_and_counts(device, engine):
         assert np.abs(ref - got).max() <= 2
 
 
+def _golden(out):
+    ref = np.fromfile("tests/data/reference_output.raw", "<i2").astype(np.float64)
+    got = np.clip(np.rint(out.astype(np.float64)), -32768, 32767)
+    assert np.sum((ref - got) ** 2) / np.sum(got**2) < 1e-4
+    assert np.abs(ref - got).max() <= 2
+
+
+def _reset_counts():
+    pk.launches = pk.stacked_launches = fk.launches = rk.launches = wk.launches = 0
+
+
+@pytest.mark.parametrize("b", [37, 1])  # a ragged shape, and the per-frame shape
+def test_stacked_pitch_kernel_matches_plain(device, b):
+    x = torch.as_tensor(_frames(b, 4, 3), device=device).reshape(b, -1)[:, :1728]
+    wins = downsample_2x(x)
+    cand_k, pidx_k = pk.pitch_analysis_stacked(wins)
+    cand_p, pidx_p = pitch_chain(wins)
+    differ = (pidx_k != pidx_p) | (cand_k[..., 0] != cand_p[..., 0])
+    assert int(differ.sum()) <= max(1, differ.numel() // 100)
+    assert int((pidx_k - pidx_p).abs().max()) <= 2
+    rowscale = cand_p.abs().amax(-1, keepdim=True) + 1.0
+    if bool((~differ).any()):
+        assert float(((cand_k - cand_p).abs() / rowscale)[~differ].max()) < 5e-3
+
+
+@pytest.mark.parametrize("b", [37, 1])  # 2 tiles of 32 with a ragged one, and B=1
+def test_rnn_kernel_matches_plain(device, engine, b):
+    rng = np.random.RandomState(4)
+    hv, hn, hd, f = (
+        torch.as_tensor((rng.randn(b, n) * sc).astype(np.float32), device=device)
+        for n, sc in ((24, 0.5), (48, 0.5), (96, 0.5), (42, 2.0))
+    )
+    got = rk.rnn_step_cuda(engine.weights, hv, hn, hd, f)
+    st, gains, vad = engine.rnn(RnnState(hv, hn, hd), f)
+    for a, w in zip(got, (*st, gains, vad)):
+        assert a.shape == w.shape
+        torch.testing.assert_close(a, w, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("b", [37, 1])
+def test_window_kernel_matches_plain(device, b):
+    rng = np.random.RandomState(5)
+    mem = torch.as_tensor((rng.randn(b, 1728) * 1000).astype(np.float32), device=device)
+    lag = torch.as_tensor(rng.randint(-5, 1100, size=b).astype(np.int32), device=device)
+    torch.testing.assert_close(wk.window_cuda(mem, lag), wk.barrel_shift_window(mem, lag), rtol=0, atol=0)
+
+
+def test_per_frame_golden_and_counts(device):
+    raw = np.fromfile("tests/data/testing.raw", "<i2").astype(np.float32)
+    state = nt.DenoiseState(device=device)
+    _reset_counts()
+    out = np.concatenate([state.process_frame(f)[0] for f in raw[: 100 * 480].reshape(100, 480)])
+    assert pk.stacked_launches == rk.launches == wk.launches == 100
+    assert pk.launches == fk.launches == 0
+    _golden(out[480:])
+
+
+def test_scan_engine_golden_and_counts(device):
+    raw = np.fromfile("tests/data/testing.raw", "<i2").astype(np.float32)
+    engine = nt.Engine(nt.RnnModel.default(), device, fused=False)
+    _reset_counts()
+    out = nt.denoise_audio(raw, engine, device=device)
+    assert pk.launches > 0 and rk.launches > 0 and wk.launches > 0
+    assert fk.launches == pk.stacked_launches == 0
+    _golden(out)
+
+
 def test_wrappers_refuse_bad_operands(device, engine):
     ds = torch.zeros((2, 864 + 240), device=device, dtype=torch.float64)
     with pytest.raises(TypeError):
@@ -93,3 +164,10 @@ def test_wrappers_refuse_bad_operands(device, engine):
     filt = torch.zeros((1, 2, 960), device=device)[..., ::2]  # not contiguous
     with pytest.raises(ValueError):
         fk.frame_loop(engine.rnn, carry, filt, torch.zeros((1, 2, 105), device=device))
+    with pytest.raises(ValueError):
+        pk.pitch_analysis_stacked(torch.zeros((2, 1728), device=device)[:, ::2])  # not contiguous
+    with pytest.raises(TypeError):
+        wk.window_at_lag(torch.zeros((2, 1728), device=device), torch.zeros(2, dtype=torch.int64, device=device))
+    state = torch.zeros((2, 24), device=device)
+    with pytest.raises(ValueError):
+        rk.rnn_step_cuda(engine.weights, state, state, state, torch.zeros((2, 42), device=device))

@@ -10,8 +10,12 @@ import sys
 import pytest
 import torch
 
+import nnnoiseless_tpu_torch as nt
+
 from nnnoiseless_tpu_torch.ops import frame_kernel as fk
 from nnnoiseless_tpu_torch.ops import pitch_kernel as pk
+from nnnoiseless_tpu_torch.ops import window
+from nnnoiseless_tpu_torch.ops.rnn import RnnState, rnn_step
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -19,12 +23,18 @@ _PROBE = """
 import sys
 import numpy as np
 import nnnoiseless_tpu_torch as nt
-from nnnoiseless_tpu_torch.ops import frame_kernel as fk, pitch_kernel as pk
+from nnnoiseless_tpu_torch import chunk, flags, pipeline
+from nnnoiseless_tpu_torch.ops import frame_kernel as fk, pitch_kernel as pk, rnn_kernel as rk, window
 assert "jax" not in sys.modules, "importing the port loaded jax"
 raw = np.fromfile("tests/data/testing.raw", "<i2").astype(np.float32)[: 6 * 480]
-out = nt.denoise_audio(raw, device="cpu")
-assert out.shape == (5 * 480,) and np.isfinite(out).all()
-assert (pk.launches, fk.launches) == (0, 0), (pk.launches, fk.launches)
+for fused in (True, False):
+    engine = nt.Engine(nt.RnnModel.default(), "cpu", fused=fused)
+    out = nt.denoise_audio(raw, engine, device="cpu")
+    assert out.shape == (5 * 480,) and np.isfinite(out).all()
+out, vad = nt.DenoiseState(device="cpu").process_frame(raw[:480])
+assert out.shape == (480,) and np.isfinite(out).all()
+counts = (pk.launches, pk.stacked_launches, fk.launches, rk.launches, window.launches)
+assert counts == (0,) * 5, counts
 assert "jax" not in sys.modules, "running the port loaded jax"
 print("ok")
 """
@@ -49,11 +59,21 @@ def test_wrappers_take_only_cpu_or_cuda():
     )
     with pytest.raises(ValueError):
         fk.frame_loop(None, carry, torch.zeros((1, 2, 480), device="meta"), torch.zeros((1, 2, 105), device="meta"))
+    with pytest.raises(ValueError):
+        pk.pitch_analysis_stacked(torch.zeros((2, 864), device="meta"))
+    with pytest.raises(ValueError):
+        window.window_at_lag(torch.zeros((2, 1728), device="meta"), torch.zeros(2, dtype=torch.int32, device="meta"))
+    rnn = nt.Engine(nt.RnnModel.default(), "cpu").rnn
+    state = RnnState(*(torch.zeros((2, n), device="meta") for n in (24, 48, 96)))
+    with pytest.raises(ValueError):
+        rnn_step(rnn, state, torch.zeros((2, 42), device="meta"))
 
 
 def test_wrappers_check_shapes():
     with pytest.raises(ValueError):
         pk.pitch_analysis_stream(torch.zeros((2, 864)), torch.zeros((1, 2)), 1)  # too short
+    with pytest.raises(ValueError):
+        pk.pitch_analysis_stacked(torch.zeros((2, 863)))
     carry = tuple(torch.zeros((2,) + shape) for _, shape in fk.CARRY_SHAPES)
     with pytest.raises(TypeError):  # period must be int32
         fk.frame_loop(None, carry, torch.zeros((1, 2, 480)), torch.zeros((1, 2, 105)))

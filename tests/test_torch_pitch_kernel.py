@@ -1,6 +1,7 @@
-"""K1's plain version (ops/pitch_kernel.py::pitch_analysis_plain, the
-ops/pitch.py chain) against the JAX pitch chain and the Pallas stream
-kernel in interpret mode, on the same rows.
+"""K1's and K3's plain versions (ops/pitch_kernel.py::pitch_analysis_plain
+and pitch_analysis_stacked on CPU tensors, both the ops/pitch.py chain)
+against the JAX pitch chain and the Pallas stream and stacked kernels in
+interpret mode, on the same rows.
 
 Bars of tests/test_pitch_kernel.py: pitch index and candidate t-lanes
 exact, gain lanes < 1e-3, every lane within 5e-3 of its row's scale (the
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from nnnoiseless_tpu.ops.pitch_kernel import pitch_analysis_pallas
 from nnnoiseless_tpu.ops.pitch_kernel import pitch_analysis_stream as jax_stream
 from test_pitch_kernel import G_LANES, T_LANES, _windows_from_signal, _xla_chain
 
@@ -63,6 +65,18 @@ def test_stream_matches_pallas_interpret(b):
     cand, pidx = pk.pitch_analysis_stream(torch.from_numpy(ds), torch.from_numpy(w0), t)
     assert pk.launches == before  # CPU tensors never reach the kernel
     assert cand.shape == (t, b, 105) and pidx.shape == (t, b) and pidx.dtype == torch.int32
+    _assert_matches(cand.numpy(), pidx.numpy(), c_ref, p_ref)
+
+
+@pytest.mark.parametrize("which", ["synthetic", "golden"])
+def test_stacked_matches_pallas_interpret(rows, which):
+    """K3's wrapper on 64 stacked CPU rows against pitch_analysis_pallas."""
+    flat = rows[which][:64]
+    c_ref, p_ref = pitch_analysis_pallas(jnp.asarray(flat), interpret=True)
+    before = pk.stacked_launches
+    cand, pidx = pk.pitch_analysis_stacked(torch.from_numpy(flat))
+    assert pk.stacked_launches == before  # CPU tensors never reach the kernel
+    assert cand.shape == (64, 105) and pidx.dtype == torch.int32
     _assert_matches(cand.numpy(), pidx.numpy(), c_ref, p_ref)
 
 

@@ -17,7 +17,18 @@
 9. the scan engine at full width: StreamBatch(4096) with fused=False, one
    warm-up and one timed chunk, against the two-phase engine;
 10. a model of non-standard topology on the card: the scan engine serves
-   it (K2 does not launch), against the same model on the CPU.
+   it (K2 does not launch), against the same model on the CPU;
+11. K4 (candidate lanes) against its plain version on the plain pitch
+   chain's tables of the phase-6 input (R = 409,600 rows) and on 100 of
+   them, with the search's pitch index and with a seeded one over [0, 768);
+12. the tools path: tools.attrib.main() at full size (golden, K3 against
+   the old chain with K4, totals, the precompute's prefix attribution, K2's
+   stage bisection through its skip knob);
+13. the pitch trace of the golden clip on the card against the native C++
+   engine (the lag-exact bar);
+14. the CLI (torch engine on the card, and the native engine) and
+   DenoiseSignal on the golden clip, and the sine benchmark at B=1 and
+   B=4096.
 
 Any failure exits non-zero before the last line.  The last two lines are a
 JSON object with each kernel's launches, error and times, and
@@ -28,8 +39,10 @@ from __future__ import annotations
 
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -45,6 +58,8 @@ REAL_SHAPE = (4096, 100)
 TIMED_CHUNKS = 3
 LATENCY_PASSES = 2  # timed passes over the golden clip in phase 8
 CUSTOM_SHAPE = (8, 20)  # (B, T) of phase 10
+K4_SMALL = 100  # rows of phase 11's small shape
+T_LANES = [0] + list(range(4, 18))  # candidate lanes holding lags
 
 
 def card_line() -> str:
@@ -148,16 +163,23 @@ def main() -> int:
     from nnnoiseless_tpu_torch.ops import rnn_kernel as rk
     from nnnoiseless_tpu_torch.ops import window as wk
     from nnnoiseless_tpu_torch.ops.biquad import biquad_filter_frames
-    from nnnoiseless_tpu_torch.ops.pitch import downsample_2x, pitch_chain
+    from nnnoiseless_tpu_torch import cli
+    from nnnoiseless_tpu_torch.ops.pitch import (
+        doubling_tables, downsample_2x, pitch_chain, pitch_search, sliding_dot, whiten, window_energies,
+    )
+    from nnnoiseless_tpu_torch.tools import attrib
+    from nnnoiseless_tpu_torch.tools.profile import sine_bench
+    from nnnoiseless_tpu_torch.tools.trace import pitch_trace, pitch_trace_native
     from nnnoiseless_tpu_torch.ops.rnn import RnnState
     from nnnoiseless_tpu_torch.tables import BIQUAD_HP_A, BIQUAD_HP_B
 
     def reset_counts():
         pk.launches = pk.stacked_launches = fk.launches = rk.launches = wk.launches = 0
+        fk.cand_launches = 0
 
     def counts():
         return {"K1": pk.launches, "K2": fk.launches, "K3": pk.stacked_launches,
-                "K5": rk.launches, "K6": wk.launches}
+                "K4": fk.cand_launches, "K5": rk.launches, "K6": wk.launches}
 
     dev = torch.device(DEVICE)
     card = card_line()
@@ -170,6 +192,8 @@ def main() -> int:
           f"cudnn={torch.backends.cudnn.allow_tf32}")
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise RuntimeError("TF32 must be off")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, check=True)
+    print(f"[1] make: {shutil.which('make')}; {gxx.stdout.splitlines()[0]} (the native engine's build)")
 
     # ---- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -422,6 +446,109 @@ def main() -> int:
     if not ok or counts10["K2"] or counts10["K5"] or min(counts10["K1"], counts10["K6"]) == 0:
         raise RuntimeError("the non-standard model was not served right by the scan engine")
 
+    # ---- 11. K4 against its plain version -------------------------------------------
+    wins11 = pk.window_stack(ds6, w06, t6).reshape(b6 * t6, -1)
+    y11 = whiten(wins11)
+    corr11 = sliding_dot(y11[:, 384:], y11, 385)
+    en11 = window_energies(y11, 480, 385)
+    pidx_search = (768 - pitch_search(y11, corr11, en11)).to(torch.int32)
+    ctab, yytab, xx11 = (a.contiguous() for a in doubling_tables(y11, corr11, en11))
+    del wins11, y11, corr11, en11
+    rng11 = np.random.RandomState(11)
+    pidx_draw = torch.as_tensor(rng11.randint(0, 768, size=b6 * t6).astype(np.int32), device=dev)
+    k4_err = 0.0
+    for rows in (b6 * t6, K4_SMALL):
+        for label, pidx in (("search", pidx_search), ("drawn", pidx_draw)):
+            args = (ctab[:rows], yytab[:rows], xx11[:rows], pidx[:rows])
+            got, want = fk.candidates_cuda(*args), fk.candidates_plain(*args)
+            torch.cuda.synchronize()
+            t_ok = torch.equal(got[:, T_LANES], want[:, T_LANES])
+            d = (got - want).abs()
+            rel_ok = bool((d <= 1e-5 * want.abs()).all())
+            err = float(d.max())
+            k4_err = max(k4_err, err)
+            reps = 20 if rows == K4_SMALL else 5
+            k_ms, p_ms = cuda_ms(torch, lambda: fk.candidates_cuda(*args), reps), \
+                cuda_ms(torch, lambda: fk.candidates_plain(*args), reps)
+            if rows == b6 * t6 and label == "search":
+                times["k4"] = (k_ms, p_ms)
+            print(f"[11] K4 R={rows} pidx {label}: t-lanes exact {t_ok}, max abs {err:.3g}, within 1e-5 "
+                  f"relative {rel_ok}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms ({card})")
+            if not (t_ok and rel_ok):
+                raise RuntimeError(f"K4 disagrees with its plain version at R={rows}, pidx {label}")
+    del ctab, yytab, xx11, pidx_search, pidx_draw
+
+    # ---- 12. the tools path: attribution at full size ------------------------------------
+    reset_counts()
+    res12 = attrib.main(["--device", DEVICE])
+    torch.cuda.synchronize()
+    counts12 = counts()
+    g12, p12, st12 = res12["golden"], res12["pitch"], res12["stages"]
+    print(f"[12] attrib: golden rel {g12['rel']:.3g}, max {g12['max']:.0f}; K3 against the old chain "
+          f"with K4: {p12['pidx_flips']} pidx flips of {p12['windows']} windows, "
+          f"t-lane diffs {p12['t_lane_diffs']}, g1 max {p12['g1_max']:.3g}; launches {counts12}")
+    print(f"[12] K2 stage costs at B={st12['batch']} T={t6} (production {st12['ms']['none']:.2f} ms): "
+          + ", ".join(f"{k} {v:+.2f} ms" for k, v in st12["cost_ms"].items()) + f" ({card})")
+    pre12 = res12["prefix"]
+    print(f"[12] precompute prefix marginals at B={pre12['batch']}: "
+          + ", ".join(f"{k} {v:+.3f} ms" for k, v in pre12["marginal_ms"].items())
+          + f"; old chain with K4 {pre12['oldchain_ms']:.2f} ms ({card})")
+    print(f"[12] totals: " + "; ".join(f"B={b}: precompute {v['precompute_ms']:.2f} ms, two-phase "
+                                      f"{v['two_phase_ms']:.2f} ms" for b, v in res12["totals"].items()))
+    if not (g12["rel"] < 1e-4 and g12["max"] <= 2):
+        raise RuntimeError("golden bars failed in the attribution run")
+    if p12["pidx_flips"] > 0.01 * p12["windows"]:
+        raise RuntimeError("K3 and the old chain disagree on more than 1% of the windows")
+    if not st12["skip_none_bit_equal"]:
+        raise RuntimeError("K2 with skip=() is not bit-equal to the production launch")
+    if not all(st12["launches"][k] >= 1 and st12["finite"][k] for k in st12["launches"]):
+        raise RuntimeError(f"a skip variant did not launch K2 or gave non-finite output: {st12}")
+    if counts12["K4"] == 0 or counts12["K3"] == 0:
+        raise RuntimeError("the tools path did not launch K3 and K4")
+
+    # ---- 13. the pitch trace against the native engine -------------------------------------
+    pt, gt = pitch_trace(clip, device=dev)
+    pn, gn = pitch_trace_native(clip)
+    neq = pt != pn
+    worst13 = int(np.abs(pt[neq].astype(int) - pn[neq].astype(int)).max()) if neq.any() else 0
+    gain13 = float(np.abs(gt[~neq] - gn[~neq]).max())
+    print(f"[13] pitch trace on the card against the native engine: {int(neq.sum())} of {len(pt)} "
+          f"periods differ (largest step {worst13}); gains where they agree: max |d| {gain13:.3g}")
+    if neq.sum() > 2 or worst13 > 2 or not gain13 < 5e-3:
+        raise RuntimeError("the pitch trace misses the lag-exact bar against the native engine")
+
+    # ---- 14. the CLI, the signal adapter and the sine benchmark ------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        for extra in ([], ["--engine", "native"]):
+            out_path = pathlib.Path(tmp) / "out.raw"
+            reset_counts()
+            t0 = time.perf_counter()
+            rc = cli.main([str(DATA / "testing.raw"), str(out_path), "--device", DEVICE, *extra])
+            cli_s = time.perf_counter() - t0
+            got = np.fromfile(out_path, "<i2").astype(np.float64)
+            n = min(len(got), len(ref))
+            rel14 = float(np.sum((ref[:n] - got[:n]) ** 2) / np.sum(got[:n] ** 2))
+            max14 = float(np.abs(ref[:n] - got[:n]).max())
+            name14 = " ".join(extra) or "--engine torch"
+            print(f"[14] CLI {name14} on testing.raw: rc {rc}, {cli_s:.3f} s wall, rel {rel14:.3g}, "
+                  f"max {max14:.0f}; launches {counts()} ({card})")
+            if rc != 0 or n != len(ref) or not (rel14 < 1e-4 and max14 <= 2):
+                raise RuntimeError(f"the CLI ({name14}) misses the golden bars")
+            if not extra and min(pk.launches, fk.launches) == 0:
+                raise RuntimeError("the CLI did not launch K1 and K2 on the card")
+    sig_out = np.fromiter(iter(nt.DenoiseSignal(clip / 32768.0, device=dev)), np.float64) * 32768.0
+    o14 = sig_out[: len(ref)].astype(np.int16).astype(np.float64)
+    rel_sig = float(np.sum((ref - o14) ** 2) / np.sum(o14 ** 2))
+    print(f"[14] DenoiseSignal over the golden clip on the card: {len(sig_out)} samples, rel {rel_sig:.3g}")
+    if len(sig_out) < len(ref) or not rel_sig < 1e-4:
+        raise RuntimeError("DenoiseSignal misses the golden bar on the card")
+    for b in (1, b6):
+        st = sine_bench(batch=b, device=dev)
+        print(f"[14] sine_bench B={b}: {st['wall_s'] * 1e3:.2f} ms wall for {st['frames']} frames, "
+              f"{st['realtime_factor']:,.1f}x realtime ({card})")
+        if not st["realtime_factor"] > 0:
+            raise RuntimeError("sine_bench gave no rate")
+
     def entry(name, source, replaces, launches, err, ms, plain_ms):
         return {"name": name, "route": "cuda", "source": f"nnnoiseless_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -438,6 +565,8 @@ def main() -> int:
               counts9["K5"], *results7["K5", b6]),
         entry("_pallas_window", "window_kernel.cu", "nnnoiseless_tpu/ops/window.py:65",
               counts9["K6"], *results7["K6", b6]),
+        entry("candidates_pallas", "candidates_kernel.cu", "nnnoiseless_tpu/ops/frame_kernel.py:408",
+              counts12["K4"], k4_err, *times["k4"]),
     ]
     print(card_line())
     print(json.dumps({"kernels": kernels}))

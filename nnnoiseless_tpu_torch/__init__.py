@@ -5,8 +5,9 @@ NVIDIA H100: the same RNNoise-lineage suppressor (48 kHz mono streams,
 10 ms frames, 22 Bark-band gains from an int8-valued GRU network, pitch
 comb filtering, overlap-add resynthesis), with the Pallas kernels of its
 paths rewritten as CUDA C++ kernels for ``sm_90a`` (``csrc/``): the
-two-phase engine (K1, K2), the scan engine (K1, K5, K6) and the per-frame
-path (K3, K5, K6).  It imports ``torch`` and never ``jax``.
+two-phase engine (K1, K2), the scan engine (K1, K5, K6), the per-frame
+path (K3, K5, K6) and the tools (K4, K2's stage knob).  It imports
+``torch`` and never ``jax``.
 
 Quick start::
 
@@ -18,6 +19,10 @@ Quick start::
 
     state = nt.DenoiseState(device="cuda")
     out, vad = state.process_frame(frame)            # one 480-sample frame
+
+    for y in nt.DenoiseSignal(samples_pm1, device="cuda"): ...   # [-1, 1] samples
+
+    python -m nnnoiseless_tpu_torch.cli in.wav out.wav --device cuda
 
 On CPU tensors every kernel runs its plain PyTorch version instead.
 """
@@ -32,14 +37,16 @@ from .denoise import (
     process_frames,
     scan_chunk,
 )
-from .model import ModelParseError, RnnModel, params_from_numpy
+from .model import ModelParseError, RnnModel, convert_rnnoise, params_from_numpy
 from .pipeline import DenoiseCarry, FeatureState, FramePre, frame_step, init_carry
+from .signal import DenoiseSignal
 
 __all__ = [
     "FRAME_SIZE",
     "FREQ_SIZE",
     "NB_BANDS",
     "NB_FEATURES",
+    "DenoiseSignal",
     "DenoiseState",
     "Engine",
     "StreamBatch",
@@ -50,6 +57,7 @@ __all__ = [
     "init_batch_carry",
     "RnnModel",
     "ModelParseError",
+    "convert_rnnoise",
     "params_from_numpy",
     "DenoiseCarry",
     "FeatureState",

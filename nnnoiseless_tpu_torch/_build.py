@@ -40,9 +40,9 @@ _SIGNATURES = {
     # carries in: mem, synth, cmem, hv, hn, hd, lastg, period, pgain;
     # streams: filt, cand; out: packed;
     # carries out: mem, synth, cmem, hv, hn, hd, lastg, period, pgain;
-    # batch, t_count, stream
+    # batch, t_count, skipped-stage mask, stream
     "nnt_frame_loop": (P,) * 7 + (P,) * 3 + (P,) * 9 + (P,) * 2 + (P,) + (P,) * 9
-    + (I, I, P),
+    + (I, I, I, P),
     # windows, cand, pidx, rows, stream
     "nnt_pitch_analysis_stacked": (P, P, P, I, P),
     # tansig, int8 weights, offsets, acts, weight bytes; f, hv, hn, hd;
@@ -50,6 +50,8 @@ _SIGNATURES = {
     "nnt_rnn_step": (P, P, P, P, I) + (P,) * 4 + (P,) * 5 + (I, P),
     # mem, lag, out, batch, stream
     "nnt_window_at_lag": (P, P, P, I, P),
+    # corr, yy, xx, pidx, out, rows, stream
+    "nnt_candidates": (P, P, P, P, P, I, P),
 }
 
 last_build_seconds = 0.0

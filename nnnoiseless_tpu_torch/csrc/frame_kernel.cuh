@@ -1,0 +1,630 @@
+// Kernel K2: the whole carry-coupled frame loop of a chunk (sm_90a, FP32
+// on CUDA cores).
+//
+// Replaces the Pallas kernel nnnoiseless_tpu/ops/frame_kernel.py::
+// frame_loop_pallas (body _make_frame_kernel, adapter run_fused_scan).  Per
+// frame and stream, in the order of ops/frame_kernel.py::frame_loop_plain:
+// history shift, lag-0 windowed DFT + band energies + floored log spectrum
+// + DCT cepstrum + silence gate, octave removal from the candidate lanes,
+// the window at the pitch lag and its DFT, the 42 features, silence
+// masking, the RNN with the 201-entry tansig table (the stages of
+// rnn_cell.cuh, shared with kernel K5), the pitch comb filter
+// and renormalization, the gain hangover and interpolation, the inverse
+// DFT and overlap-add.
+//
+// Layout.  One thread block owns a tile of S = 8 streams and walks all T
+// frames of the chunk in one launch.  The carries are read at the start
+// and written at the end; between frames they live in shared memory (the
+// synthesis tail in the output carry buffer).  The tile's last block masks
+// the streams beyond B instead of padding the batch.  The input history is
+// never shifted in memory: after frame t it is full[480(t+1) + q] of
+// full = [input_mem | filt_0 | filt_1 | ...], read by index (hist()).
+//
+// What bounds it.  Three 960x962-class contractions per stream-frame (the
+// lag-0 and pitch-lag forward DFTs and the inverse), ~2.8 M multiply-adds,
+// dominate everything else by ~20x.  F and IV are 3.7 MB each: far beyond
+// shared memory, so they stream from L2 (50 MB).  The block stacks the
+// tile's 16 forward windows as one (16 x 960) operand in shared memory;
+// each thread owns 4 output columns for all 16 rows, so one F element read
+// from L2 feeds 16 FMAs, and one shared-memory float4 broadcast feeds 16.
+// The int8-valued weights (87 KB) are read as int8 through L1, exact.
+// Everything after the DFTs is per-stream work of a few thousand
+// operations, spread over the block's 256 threads.  Shared memory is
+// ~100 KB, so two blocks share an SM.
+//
+// Stage attribution.  The kernel is a template on a mask of stages to stub
+// out (the TPU kernel's `skip` knob, frame_kernel.py:596-756 there), for
+// timing each stage by its absence.  Mask 0 is the production kernel: every
+// stub is an `if constexpr`, so it compiles to the code it had before the
+// knob.  frame_kernel.cu holds mask 0 and the C entry; frame_kernel_skip.cu
+// the seven single-stage masks, so nvcc builds them side by side.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "rnn_cell.cuh"
+
+namespace frame {
+
+// Stages of the skip mask, in the order of ops/frame_kernel.py::SKIP_STAGES.
+enum : int {
+  SK_RD = 1,     // octave removal: period max(2 t0, 60), gain 0
+  SK_LAG0 = 2,   // lag-0 analysis: x = [filt, filt, filt[:2]], ceps = ex, never silent
+  SK_DFT = 4,    // pitch-lag window and DFT: p = x
+  SK_FEAT = 8,   // features: [ceps, ceps[:20]], unmasked
+  SK_RNN = 16,   // RNN: gains |f[:22]| 0.01, vad f[0], states kept
+  SK_COMB = 32,  // comb filter: x_comb = x
+  SK_INV = 64,   // inverse DFT: out = x_final[:480] + synth, synth kept
+};
+
+struct Args {
+  const float *F, *IV, *bcorr;
+  const int* branges;
+  const float *interp, *dct, *tansig;
+  const int8_t* w;
+  const int *woff, *acts;
+  const float *mem, *synth, *cmem, *hv, *hn, *hd, *lastg;
+  const int* per;
+  const float* pg;
+  const float *filt, *cand;
+  float* packed;
+  float *mem_o, *synth_o, *cmem_o, *hv_o, *hn_o, *hd_o, *lastg_o;
+  int* per_o;
+  float* pg_o;
+  int B, T;
+};
+
+// Launch a single-stage skip instance (frame_kernel_skip.cu); returns a
+// CUDA error code, cudaErrorInvalidValue for another mask.
+int launch_skip(int skip, const Args& a, cudaStream_t stream);
+
+}  // namespace frame
+
+namespace {
+
+using frame::Args;
+
+constexpr int S = 8;  // streams per block
+constexpr int THREADS = 256;
+constexpr int FRAME = 480;
+constexpr int WIN = 960;
+constexpr int FREQ = 481;
+constexpr int PACKED = 962;
+constexpr int NB = 22;
+constexpr int CEPS = 8;
+constexpr int DLY = 6;
+constexpr int NF = 42;
+constexpr int MEM = 1728;
+constexpr int OFF = 768;  // MEM - WIN
+constexpr int OUT_LANES = 512;
+constexpr int OFF_VAD = 480;
+constexpr int OFF_PERIOD = 481;
+constexpr int OFF_PGAIN = 482;
+constexpr int N_CAND = 105;
+constexpr int DD = 24, DV = 24, DN = 48, DH = 96, DG = 22;
+constexpr float DCT_SCALE = 0.30151134729385376f;  // f32(sqrt(2/22))
+
+// Per-stream block of shared memory (offsets in floats).
+enum : int {
+  P_CM = 0,                  // (8, 22) cepstral history, newest row first
+  P_HV = P_CM + CEPS * NB,   // GRU states
+  P_HN = P_HV + DV,
+  P_HD = P_HN + DN,
+  P_LASTG = P_HD + DH,
+  P_EX = P_LASTG + NB,       // band energies of x
+  P_EP = P_EX + NB,          // band energies of p
+  P_EXP = P_EP + NB,         // band correlation of x and p, then normalized
+  P_CEPS = P_EXP + NB,
+  P_LY = P_CEPS + NB,        // log spectrum, later the comb gains r
+  P_GAINS = P_LY + NB,
+  P_NORM = P_GAINS + NB,
+  P_G2 = P_NORM + NB,
+  P_FEAT = P_G2 + NB,        // 42 features
+  P_D = P_FEAT + NF,         // input dense output
+  P_HV2 = P_D + DD,          // new GRU states before silence masking
+  P_HN2 = P_HV2 + DV,
+  P_HD2 = P_HN2 + DN,
+  P_GIN = P_HD2 + DH,        // GRU input vector (up to 114)
+  P_GS = P_GIN + NF + DV + DN,  // gate scratch (3 x 96), or 64 distances
+  P_MISC = P_GS + 3 * DH,    // [0] pitch gain [1] vad [2] silence flag
+  PS = P_MISC + 4,
+};
+constexpr int U_FLOATS = 2 * S * PACKED;
+constexpr int TAB = 204;  // tansig table, 201 entries
+constexpr int N_INTS = S + 16 + 8;
+constexpr size_t SMEM_BYTES = (size_t)(U_FLOATS + TAB + S * PS) * sizeof(float) + N_INTS * sizeof(int);
+using Cell = rnn_cell::Layout<S, THREADS, PS, P_GS, P_GIN>;
+
+// Element q of stream b's input history after frame t's shift.
+__device__ __forceinline__ float hist(const Args& a, int b, int t, int q) {
+  int fi = FRAME * (t + 1) + q;
+  if (fi < MEM) return a.mem[(size_t)b * MEM + fi];
+  fi -= MEM;
+  return a.filt[((size_t)(fi / FRAME) * a.B + b) * FRAME + fi % FRAME];
+}
+
+// Band `band` of bands(u * v) over packed spectra (lib.rs:65-82).
+__device__ float band_sum(const float* u, const float* v, const Args& a, int band) {
+  const float* c = a.bcorr + band * FREQ;
+  const int hi = __ldg(a.branges + 2 * band + 1);
+  float acc = 0.f;
+  for (int j = __ldg(a.branges + 2 * band); j < hi; ++j) {
+    const float w = __ldg(c + j);
+    acc = fmaf(__fmul_rn(u[j], v[j]), w, acc);
+    acc = fmaf(__fmul_rn(u[FREQ + j], v[FREQ + j]), w, acc);
+  }
+  return acc;
+}
+
+// Band values interpolated to one bin (lib.rs:84-97).
+__device__ float interp_at(const Args& a, const float* v, int bin) {
+  const float* r = a.interp + bin * NB;
+  float acc = 0.f;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) acc = fmaf(__ldg(r + b), v[b], acc);
+  return acc;
+}
+
+// ops/pitch.py::remove_doubling_from_candidates: the sequential k = 2..15
+// chain with the previous frame's continuity bonus (pitch.rs:173-221).
+__device__ void remove_doubling(const float* cand, int last_period, float last_gain, int* period,
+                                float* gain) {
+  const float minp = 30.f;
+  const float t0 = cand[0], g0 = cand[1];
+  const float prev = floorf((float)last_period * 0.5f);
+  float bxy = cand[2], byy = cand[3], t = t0, g = g0;
+  int bidx = 0;
+  bool stopped = false;
+  for (int k = 2; k < 16; ++k) {
+    const float t1 = cand[4 + k - 2];
+    const bool active = !stopped && t1 >= minp;
+    stopped = stopped || t1 < minp;
+    const float xy = cand[18 + k - 2], yy = cand[32 + k - 2], g1 = cand[46 + k - 2];
+    const float adiff = fabsf(t1 - prev);
+    const float cont = adiff <= 1.f ? last_gain
+                       : (adiff <= 2.f && (float)(5 * k * k) < t0) ? last_gain * 0.5f : 0.f;
+    // the middle branch is shadowed by the first, as in the reference
+    const float thresh = t1 < 3.f * minp ? fmaxf(__fsub_rn(__fmul_rn(0.85f, g0), cont), 0.4f)
+                         : t1 < 2.f * minp ? fmaxf(__fsub_rn(__fmul_rn(0.9f, g0), cont), 0.5f)
+                                           : fmaxf(__fsub_rn(__fmul_rn(0.7f, g0), cont), 0.3f);
+    if (active && g1 > thresh) {
+      bxy = xy;
+      byy = yy;
+      t = t1;
+      g = g1;
+      bidx = k - 1;
+    }
+  }
+  bxy = fmaxf(bxy, 0.f);
+  float pg = byy <= bxy ? 1.f : bxy / (byy + 1.f);
+  const float c0 = cand[60 + bidx], c1 = cand[75 + bidx], c2 = cand[90 + bidx];
+  const float offset = (c2 - c0 > __fmul_rn(0.7f, c1 - c0))   ? 1.f
+                       : (c0 - c2 > __fmul_rn(0.7f, c1 - c2)) ? -1.f
+                                                               : 0.f;
+  *gain = fminf(pg, g);
+  *period = (int)fmaxf(2.f * t + offset, 60.f);
+}
+
+template <int SKIP>
+__global__ void __launch_bounds__(THREADS, 2) frame_kernel(const Args a) {
+  using namespace frame;
+  // DFT operand rows: the lag-0 windows unless SK_LAG0, the pitch-lag
+  // windows unless SK_DFT
+  constexpr bool LAG0_ROWS = !(SKIP & SK_LAG0);
+  constexpr bool PITCH_ROWS = !(SKIP & SK_DFT);
+  constexpr int NR = (LAG0_ROWS ? S : 0) + (PITCH_ROWS ? S : 0);
+  extern __shared__ float4 smem4[];
+  float* U = reinterpret_cast<float*>(smem4);  // (16, 962) DFT operand / spectra
+  float* tab = U + U_FLOATS;
+  float* ps = tab + TAB;
+  int* iper = reinterpret_cast<int*>(ps + S * PS);
+  int* woff = iper + S;
+  int* acts = woff + 16;
+
+  const int tid = threadIdx.x;
+  const int b0 = blockIdx.x * S;
+  const int n_valid = min(S, a.B - b0);
+
+  // ---- carries in ---------------------------------------------------------
+  for (int i = tid; i < 201; i += THREADS) tab[i] = a.tansig[i];
+  if (tid < 15) woff[tid] = a.woff[tid];
+  if (tid < 6) acts[tid] = a.acts[tid];
+  for (int i = tid; i < S * PS; i += THREADS) ps[i] = 0.f;
+  __syncthreads();
+  auto load = [&](const float* src, int n, int off) {
+    for (int idx = tid; idx < n_valid * n; idx += THREADS)
+      ps[(idx / n) * PS + off + idx % n] = src[(size_t)b0 * n + idx];
+  };
+  load(a.cmem, CEPS * NB, P_CM);
+  load(a.hv, DV, P_HV);
+  load(a.hn, DN, P_HN);
+  load(a.hd, DH, P_HD);
+  load(a.lastg, NB, P_LASTG);
+  if (tid < S) {
+    iper[tid] = tid < n_valid ? a.per[b0 + tid] : 0;
+    if (tid < n_valid) ps[tid * PS + P_MISC] = a.pg[b0 + tid];
+  }
+  for (int idx = tid; idx < n_valid * FRAME; idx += THREADS)
+    a.synth_o[(size_t)b0 * FRAME + idx] = a.synth[(size_t)b0 * FRAME + idx];
+  __syncthreads();
+
+  const int8_t* W = a.w;
+  const float* X = U;               // lag-0 spectra, rows 0..7
+  float* P = U + S * PACKED;        // pitch-lag spectra, rows 8..15
+
+  for (int t = 0; t < a.T; ++t) {
+    const size_t row0 = (size_t)t * a.B + b0;  // (t, b0) row of cand/packed
+
+    // ---- octave removal ---------------------------------------------------
+    if (tid < n_valid) {
+      float* p = ps + tid * PS;
+      int per;
+      float pg;
+      const float* cand = a.cand + (row0 + tid) * N_CAND;
+      if constexpr (SKIP & SK_RD) {
+        per = max(2 * (int)cand[0], 60);
+        pg = cand[1] * 0.f;
+      } else {
+        remove_doubling(cand, iper[tid], p[P_MISC], &per, &pg);
+      }
+      iper[tid] = per;
+      p[P_MISC] = pg;
+      float* out = a.packed + (row0 + tid) * OUT_LANES;
+      out[OFF_PERIOD] = (float)per;
+      out[OFF_PGAIN] = pg;
+      for (int l = OFF_PGAIN + 1; l < OUT_LANES; ++l) out[l] = 0.f;
+    }
+    __syncthreads();
+
+    // ---- the 16 windows as the (960, 16) operand: rows 0..7 the lag-0
+    //      window mem[768 + k], rows 8..15 the pitch window mem[768 - period + k]
+    //      (NR = 8 rows when a skipped stage drops one of the two)
+    for (int idx = tid; idx < NR * WIN; idx += THREADS) {
+      const int r = idx / WIN, k = idx % WIN, s = r % S;
+      float v = 0.f;
+      if (s < n_valid) v = hist(a, b0 + s, t, LAG0_ROWS && r < S ? OFF + k : OFF - iper[s] + k);
+      U[k * NR + r] = v;
+    }
+    __syncthreads();
+
+    // ---- forward DFTs: (16, 960) x F (960, 962) ---------------------------
+    {
+      float acc[4][NR];
+      int col[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        col[j] = min(tid + j * THREADS, PACKED - 1);
+#pragma unroll
+        for (int r = 0; r < NR; ++r) acc[j][r] = 0.f;
+      }
+      for (int k = 0; k < WIN; ++k) {
+        const float4* ak = reinterpret_cast<const float4*>(U + k * NR);
+        float av[NR];
+#pragma unroll
+        for (int q = 0; q < NR / 4; ++q) {
+          const float4 v = ak[q];
+          av[4 * q] = v.x;
+          av[4 * q + 1] = v.y;
+          av[4 * q + 2] = v.z;
+          av[4 * q + 3] = v.w;
+        }
+        const float* fk = a.F + (size_t)k * PACKED;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float f = __ldg(fk + col[j]);
+#pragma unroll
+          for (int r = 0; r < NR; ++r) acc[j][r] = fmaf(av[r], f, acc[j][r]);
+        }
+      }
+      __syncthreads();
+      // operand row r is spectrum row r, or pitch-lag row S + r without lag-0 rows
+      constexpr int ROW0 = LAG0_ROWS ? 0 : S;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (tid + j * THREADS < PACKED)
+#pragma unroll
+          for (int r = 0; r < NR; ++r) U[(ROW0 + r) * PACKED + col[j]] = acc[j][r];
+    }
+    __syncthreads();
+    if constexpr (SKIP & SK_LAG0) {  // x = [filt, filt, filt[:2]] of this frame
+      for (int idx = tid; idx < S * PACKED; idx += THREADS) {
+        const int s = idx / PACKED, j = idx % PACKED;
+        U[idx] = s < n_valid ? a.filt[((size_t)t * a.B + b0 + s) * FRAME + j % FRAME] : 0.f;
+      }
+      __syncthreads();
+    }
+    if constexpr (SKIP & SK_DFT) {  // p = x
+      for (int idx = tid; idx < S * PACKED; idx += THREADS) P[idx] = X[idx];
+      __syncthreads();
+    }
+
+    // ---- band energies and correlation -------------------------------------
+    for (int idx = tid; idx < S * NB; idx += THREADS) {
+      const int s = idx / NB, bd = idx % NB;
+      float* p = ps + s * PS;
+      const float* x = X + s * PACKED;
+      const float* pp = P + s * PACKED;
+      p[P_EX + bd] = band_sum(x, x, a, bd);
+      p[P_EP + bd] = band_sum(pp, pp, a, bd);
+      p[P_EXP + bd] = band_sum(x, pp, a, bd);
+    }
+    __syncthreads();
+
+    // ---- floored log spectrum and the silence gate (features.rs:147-166) --
+    if constexpr (SKIP & SK_LAG0) {
+      if (tid < S) ps[tid * PS + P_MISC + 2] = 0.f;
+    } else if (tid < S) {
+      float* p = ps + tid * PS;
+      float log_max = -2.f, follow = -2.f, e = 0.f;
+      for (int i = 0; i < NB; ++i) {
+        const float raw = log10f(0.01f + p[P_EX + i]);
+        const float v = fmaxf(fmaxf(raw, log_max - 7.f), follow - 1.5f);
+        log_max = fmaxf(log_max, v);
+        follow = fmaxf(follow - 1.5f, v);
+        p[P_LY + i] = v;
+        e += p[P_EX + i];
+      }
+      p[P_MISC + 2] = e < 0.04f ? 1.f : 0.f;
+    }
+    __syncthreads();
+
+    // ---- cepstrum and normalized band correlation --------------------------
+    for (int idx = tid; idx < S * NB; idx += THREADS) {
+      const int s = idx / NB, i = idx % NB;
+      float* p = ps + s * PS;
+      if constexpr (SKIP & SK_LAG0) {
+        p[P_CEPS + i] = p[P_EX + i];
+      } else {
+        float acc = 0.f;
+        for (int j = 0; j < NB; ++j) acc = fmaf(p[P_LY + j], __ldg(a.dct + j * NB + i), acc);
+        float c = __fmul_rn(acc, DCT_SCALE);
+        if (i == 0) c = __fadd_rn(c, -12.f);
+        if (i == 1) c = __fadd_rn(c, -4.f);
+        p[P_CEPS + i] = c;
+      }
+      p[P_EXP + i] = p[P_EXP + i] / sqrtf(__fadd_rn(0.001f, __fmul_rn(p[P_EX + i], p[P_EP + i])));
+    }
+    __syncthreads();
+
+    // ---- squared distances between the rows of the new cepstral history ----
+    for (int idx = tid; !(SKIP & SK_FEAT) && idx < S * CEPS * CEPS; idx += THREADS) {
+      const int s = idx / (CEPS * CEPS), i = (idx / CEPS) % CEPS, j = idx % CEPS;
+      float* p = ps + s * PS;
+      const float* ri = i == 0 ? p + P_CEPS : p + P_CM + (i - 1) * NB;
+      const float* rj = j == 0 ? p + P_CEPS : p + P_CM + (j - 1) * NB;
+      float d = 0.f;
+      for (int k = 0; k < NB; ++k) {
+        const float v = __fsub_rn(ri[k], rj[k]);
+        d = fmaf(v, v, d);
+      }
+      p[P_GS + i * CEPS + j] = d;
+    }
+    __syncthreads();
+
+    // ---- the 42 features (features.rs:139-216), zero on silence ------------
+    for (int idx = tid; idx < S * NF; idx += THREADS) {
+      const int s = idx / NF, l = idx % NF;
+      float* p = ps + s * PS;
+      const float* ceps = p + P_CEPS;
+      if constexpr (SKIP & SK_FEAT) {
+        p[P_FEAT + l] = ceps[l < NB ? l : l - NB];
+        continue;
+      }
+      const float* c1 = p + P_CM;       // previous frame
+      const float* c2 = p + P_CM + NB;  // two frames back
+      float v;
+      if (l < DLY) {
+        v = __fadd_rn(__fadd_rn(ceps[l], c1[l]), c2[l]);
+      } else if (l < NB) {
+        v = ceps[l];
+      } else if (l < NB + DLY) {
+        v = __fsub_rn(ceps[l - NB], c2[l - NB]);
+      } else if (l < NB + 2 * DLY) {
+        const int i = l - NB - DLY;
+        v = __fadd_rn(__fsub_rn(ceps[i], 2.f * c1[i]), c2[i]);
+      } else if (l < NB + 3 * DLY) {
+        const int i = l - NB - 2 * DLY;
+        float acc = 0.f;
+        for (int j = 0; j < NB; ++j) acc = fmaf(p[P_EXP + j], __ldg(a.dct + j * NB + i), acc);
+        v = __fmul_rn(acc, DCT_SCALE);
+        if (i == 0) v = __fadd_rn(v, -1.3f);
+        if (i == 1) v = __fadd_rn(v, -0.9f);
+      } else if (l == NF - 2) {
+        v = __fmul_rn(0.01f, __fsub_rn((float)iper[s], 300.f));
+      } else {
+        float sum = 0.f;
+        for (int i = 0; i < CEPS; ++i) {
+          float m = INFINITY;
+          for (int j = 0; j < CEPS; ++j)
+            if (j != i) m = fminf(m, p[P_GS + i * CEPS + j]);
+          sum += m;
+        }
+        v = __fsub_rn(sum / (float)CEPS, 2.1f);
+      }
+      p[P_FEAT + l] = p[P_MISC + 2] != 0.f ? 0.f : v;
+    }
+    __syncthreads();
+
+    // ---- RNN (rnn.rs:343-379); the cepstral history shifts unless silent --
+    if (tid < S && ps[tid * PS + P_MISC + 2] == 0.f) {
+      float* p = ps + tid * PS;
+      for (int l = CEPS * NB - 1; l >= NB; --l) p[P_CM + l] = p[P_CM + l - NB];
+      for (int i = 0; i < NB; ++i) p[P_CM + i] = p[P_CEPS + i];
+    }
+    if constexpr (SKIP & SK_RNN) {
+      for (int idx = tid; idx < S * NB; idx += THREADS) {
+        float* p = ps + (idx / NB) * PS;
+        p[P_GAINS + idx % NB] = __fmul_rn(fabsf(p[P_FEAT + idx % NB]), 0.01f);
+      }
+      if (tid < S) ps[tid * PS + P_MISC + 1] = ps[tid * PS + P_FEAT];
+      __syncthreads();
+    } else {
+    rnn_cell::dense_layer<Cell>(ps, P_FEAT, NF, W + woff[0], W + woff[1], DD, P_D, acts[0], tab);
+    __syncthreads();
+    rnn_cell::gru_gates<Cell>(ps, P_D, DD, P_HV, DV, W + woff[2], W + woff[3], W + woff[4], tab);
+    __syncthreads();
+    rnn_cell::gru_out<Cell>(ps, P_HV, DV, W + woff[3], acts[1], P_HV2, tab);
+    __syncthreads();
+    rnn_cell::dense_layer<Cell>(ps, P_HV2, DV, W + woff[13], W + woff[14], 1, P_MISC + 1, acts[5], tab);
+    rnn_cell::gather_input<Cell>(ps, P_D, DD, P_HV2, DV, P_FEAT, NF);
+    __syncthreads();
+    rnn_cell::gru_gates<Cell>(ps, P_GIN, DD + DV + NF, P_HN, DN, W + woff[5], W + woff[6], W + woff[7], tab);
+    __syncthreads();
+    rnn_cell::gru_out<Cell>(ps, P_HN, DN, W + woff[6], acts[2], P_HN2, tab);
+    __syncthreads();
+    rnn_cell::gather_input<Cell>(ps, P_HV2, DV, P_HN2, DN, P_FEAT, NF);
+    __syncthreads();
+    rnn_cell::gru_gates<Cell>(ps, P_GIN, DV + DN + NF, P_HD, DH, W + woff[8], W + woff[9], W + woff[10], tab);
+    __syncthreads();
+    rnn_cell::gru_out<Cell>(ps, P_HD, DH, W + woff[9], acts[3], P_HD2, tab);
+    __syncthreads();
+    rnn_cell::dense_layer<Cell>(ps, P_HD2, DH, W + woff[11], W + woff[12], DG, P_GAINS, acts[4], tab);
+    // silence keeps the GRU states
+    for (int idx = tid; idx < S * (DV + DN + DH); idx += THREADS) {
+      const int s = idx / (DV + DN + DH), i = idx % (DV + DN + DH);
+      float* p = ps + s * PS;
+      if (p[P_MISC + 2] == 0.f) p[P_HV + i] = p[P_HV2 + i];  // HV..HD and HV2..HD2 are contiguous
+    }
+    }  // SK_RNN
+    if (tid < n_valid) {
+      const float* p = ps + tid * PS;
+      a.packed[(row0 + tid) * OUT_LANES + OFF_VAD] = p[P_MISC + 2] != 0.f ? 0.f : p[P_MISC + 1];
+    }
+    __syncthreads();
+
+    // ---- pitch comb filter gains and the gain hangover (features.rs:223-257)
+    for (int idx = tid; idx < S * NB; idx += THREADS) {
+      const int s = idx / NB, i = idx % NB;
+      float* p = ps + s * PS;
+      const float g = p[P_GAINS + i], e = p[P_EXP + i];
+      if constexpr (!(SKIP & SK_COMB)) {
+        const float g_sq = __fmul_rn(g, g), e_sq = __fmul_rn(e, e);
+        float r = e > g ? 1.f
+                        : __fmul_rn(e_sq, __fsub_rn(1.f, g_sq)) /
+                              __fadd_rn(0.001f, __fmul_rn(g_sq, __fsub_rn(1.f, e_sq)));
+        r = sqrtf(fminf(fmaxf(r, 0.f), 1.f));
+        p[P_LY + i] = __fmul_rn(r, sqrtf(p[P_EX + i] / __fadd_rn(1e-8f, p[P_EP + i])));
+      }
+      p[P_G2 + i] = fmaxf(g, __fmul_rn(0.6f, p[P_LASTG + i]));
+    }
+    __syncthreads();
+    // x1 = x + p * interp(r), in place of p (x1 = x without the comb filter)
+    if constexpr (!(SKIP & SK_COMB)) {
+      for (int idx = tid; idx < S * PACKED; idx += THREADS) {
+        const int s = idx / PACKED, j = idx % PACKED;
+        float* pp = P + s * PACKED;
+        pp[j] = fmaf(pp[j], interp_at(a, ps + s * PS + P_LY, j % FREQ), X[s * PACKED + j]);
+      }
+      __syncthreads();
+    }
+    for (int idx = tid; idx < S * NB; idx += THREADS) {
+      const int s = idx / NB, i = idx % NB;
+      float* p = ps + s * PS;
+      if constexpr (!(SKIP & SK_COMB)) {
+        const float* x1 = P + s * PACKED;
+        const float new_e = band_sum(x1, x1, a, i);
+        p[P_NORM + i] = sqrtf(p[P_EX + i] / __fadd_rn(1e-8f, new_e));
+      }
+      if (p[P_MISC + 2] == 0.f) p[P_LASTG + i] = p[P_G2 + i];
+    }
+    __syncthreads();
+    // x_final = silent ? x : x1 * interp(norm) * interp(g2), in place of x1
+    for (int idx = tid; idx < S * PACKED; idx += THREADS) {
+      const int s = idx / PACKED, j = idx % PACKED;
+      const float* p = ps + s * PS;
+      float* pp = P + s * PACKED;
+      if constexpr (SKIP & SK_COMB) {
+        pp[j] = p[P_MISC + 2] != 0.f ? X[s * PACKED + j]
+                                     : __fmul_rn(X[s * PACKED + j], interp_at(a, p + P_G2, j % FREQ));
+      } else {
+        pp[j] = p[P_MISC + 2] != 0.f
+                    ? X[s * PACKED + j]
+                    : __fmul_rn(__fmul_rn(pp[j], interp_at(a, p + P_NORM, j % FREQ)),
+                                interp_at(a, p + P_G2, j % FREQ));
+      }
+    }
+    __syncthreads();
+    if constexpr (SKIP & SK_INV) {  // out = x_final[:480] + synth; synth kept
+      for (int idx = tid; idx < n_valid * FRAME; idx += THREADS) {
+        const int s = idx / FRAME, c = idx % FRAME;
+        a.packed[(row0 + s) * OUT_LANES + c] =
+            __fadd_rn(P[s * PACKED + c], a.synth_o[(size_t)(b0 + s) * FRAME + c]);
+      }
+      __syncthreads();
+      continue;
+    }
+    // the (962, 8) inverse operand, over the lag-0 spectra
+    for (int idx = tid; idx < S * PACKED; idx += THREADS) {
+      const int j = idx / S, s = idx % S;
+      U[idx] = P[s * PACKED + j];
+    }
+    __syncthreads();
+
+    // ---- inverse DFT (8, 962) x IV (962, 960) and overlap-add --------------
+    {
+      // each thread owns output samples c and c + 480 (head and tail) for
+      // c in {tid, tid + 256}, so it alone reads and rewrites synth[c]
+      float acc[4][S];
+      int col[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        col[j] = min(tid + j * THREADS, FRAME - 1);
+#pragma unroll
+        for (int s = 0; s < S; ++s) acc[j][s] = acc[j + 2][s] = 0.f;
+      }
+      for (int k = 0; k < PACKED; ++k) {
+        const float4* xk = reinterpret_cast<const float4*>(U + k * S);
+        const float4 lo = xk[0], hi = xk[1];
+        const float xv[S] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+        const float* iv = a.IV + (size_t)k * WIN;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float f = __ldg(iv + col[j & 1] + (j >> 1) * FRAME);
+#pragma unroll
+          for (int s = 0; s < S; ++s) acc[j][s] = fmaf(xv[s], f, acc[j][s]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (tid + j * THREADS >= FRAME) continue;
+        for (int s = 0; s < n_valid; ++s) {
+          float* so = a.synth_o + (size_t)(b0 + s) * FRAME + col[j];
+          a.packed[(row0 + s) * OUT_LANES + col[j]] = __fadd_rn(acc[j][s], *so);
+          *so = acc[j + 2][s];
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- carries out ----------------------------------------------------------
+  for (int idx = tid; idx < n_valid * MEM; idx += THREADS)
+    a.mem_o[(size_t)b0 * MEM + idx] = hist(a, b0 + idx / MEM, a.T - 1, idx % MEM);
+  auto store = [&](float* dst, int n, int off) {
+    for (int idx = tid; idx < n_valid * n; idx += THREADS)
+      dst[(size_t)b0 * n + idx] = ps[(idx / n) * PS + off + idx % n];
+  };
+  store(a.cmem_o, CEPS * NB, P_CM);
+  store(a.hv_o, DV, P_HV);
+  store(a.hn_o, DN, P_HN);
+  store(a.hd_o, DH, P_HD);
+  store(a.lastg_o, NB, P_LASTG);
+  if (tid < n_valid) {
+    a.per_o[b0 + tid] = iper[tid];
+    a.pg_o[b0 + tid] = ps[tid * PS + P_MISC];
+  }
+}
+
+template <int SKIP>
+int launch(const Args& a, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(frame_kernel<SKIP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  frame_kernel<SKIP><<<(a.B + S - 1) / S, THREADS, SMEM_BYTES, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace

@@ -40,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "candidate_lanes.cuh"
+
 namespace {
 
 constexpr int N_DS = 864;
@@ -55,8 +57,6 @@ constexpr int N_CAND = 105;
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int LAGS_PER_THREAD = (N_LAGS + THREADS - 1) / THREADS;  // 4
-
-__constant__ int SECOND_CHECK[16] = {0, 0, 3, 2, 3, 2, 5, 2, 3, 2, 3, 2, 5, 2, 3, 2};
 
 struct ArgMax {
   float v;
@@ -268,38 +268,11 @@ pitch_kernel(const float* __restrict__ ds, int ds_stride, int first, const float
   const int pidx = MAX_PERIOD - (2 * best2 - offset);
   pidx_out[row] = pidx;
 
-  // ---- octave-removal candidate lanes (ops/pitch.py::doubling_candidates)
-  float* out = cand + (size_t)row * N_CAND;
-  const float xx = fmaxf(etab[MAXP], 0.f);
-  auto corr_at = [&](int tt) { return corr[MAXP - tt]; };
-  auto yy_at = [&](int tt) { return fmaxf(etab[MAXP - tt], 0.f); };
-  auto gain = [&](float xy, float yy) { return xy / sqrtf(__fadd_rn(1.f, __fmul_rn(xx, yy))); };
-
-  const int t0 = min(pidx / 2, MAXP - 1);
-  const float xy0 = corr_at(t0), yy0 = yy_at(t0);
-  out[0] = (float)t0;
-  out[1] = gain(xy0, yy0);
-  out[2] = xy0;
-  out[3] = yy0;
-  int cands[15];
-  cands[0] = t0;
-  for (int k = 2; k < 16; ++k) {
-    const int t1 = (2 * t0 + k) / (2 * k);
-    const int t1b = k == 2 ? (t1 + t0 > MAXP ? t0 : t0 + t1)
-                           : (2 * SECOND_CHECK[k] * t0 + k) / (2 * k);
-    const float xy = (corr_at(t1) + corr_at(t1b)) * 0.5f;
-    const float yy = (yy_at(t1) + yy_at(t1b)) * 0.5f;
-    out[4 + k - 2] = (float)t1;
-    out[18 + k - 2] = xy;
-    out[32 + k - 2] = yy;
-    out[46 + k - 2] = gain(xy, yy);
-    cands[k - 1] = t1;
-  }
-  for (int c = 0; c < 15; ++c) {
-    out[60 + c] = corr_at(cands[c] - 1);
-    out[75 + c] = corr_at(cands[c]);
-    out[90 + c] = corr_at(cands[c] + 1);
-  }
+  // ---- octave-removal candidate lanes (ops/pitch.py::doubling_candidates);
+  //      pidx >= 181 here, so every lookup is on the tables
+  candidate_lanes::write<false>(
+      min(pidx / 2, MAXP - 1), fmaxf(etab[MAXP], 0.f), [&](int tt) { return corr[MAXP - tt]; },
+      [&](int tt) { return fmaxf(etab[MAXP - tt], 0.f); }, cand + (size_t)row * N_CAND);
 }
 
 }  // namespace

@@ -11,7 +11,8 @@ their wrappers.
   changes the output, because the carry is the complete inter-frame
   dependency.
 * :meth:`DenoiseState.process_frame` is the reference's per-frame API: one
-  :func:`pipeline.frame_step` at B=1 (kernels K3, K5, K6 on CUDA).
+  :func:`pipeline.frame_step` at B=1 (kernels K3, K5, K6 on CUDA), or the
+  native C++ engine with ``engine="native"``.
 
 Audio convention: f32 samples in the i16 range, 48 kHz mono per stream.
 Every entry point takes the device as an argument; on a CUDA device the
@@ -140,35 +141,70 @@ class DenoiseState:
     >>> state = DenoiseState(device="cuda")
     >>> out, vad = state.process_frame(frame)   # frame: 480 f32 samples
 
-    :meth:`process_frame` runs :func:`pipeline.frame_step` at B=1, as the
-    JAX package does; :meth:`process_chunk` runs the batched engine at B=1.
-    As with the reference, the first output frame holds fade-in artifacts
-    and is usually dropped.
+    ``engine="torch"``: :meth:`process_frame` runs :func:`pipeline.frame_step`
+    at B=1, as the JAX package does, and :meth:`process_chunk` runs the
+    batched engine at B=1, both on ``device``.  ``engine="native"``: the
+    in-process C++ engine (native/denoise_engine.cc through ``native.py``),
+    no device at all; a custom model reaches it as its ``.rnn`` bytes.  As
+    with the reference, the first output frame holds fade-in artifacts and
+    is usually dropped.
     """
 
     FRAME_SIZE = FRAME_SIZE
 
-    def __init__(self, model=None, device="cpu"):
-        self.engine = _engine(model, device)
+    def __init__(self, model=None, device="cpu", engine: str = "torch"):
+        if engine not in ("torch", "native"):
+            raise ValueError(f"engine must be 'torch' or 'native', got {engine!r}")
+        self.backend = engine
+        if engine == "native":
+            from .native import NativeDenoiseState, NativeModel
+
+            rnn_model = model.model if isinstance(model, Engine) else model
+            # the library ships the default weights; only a custom model
+            # needs the (lossless) .rnn round trip into its parser
+            self._nmodel = NativeModel(rnn_model.to_bytes()) if rnn_model is not None else None
+            self._nstate = NativeDenoiseState(self._nmodel)
+            self.engine = None
+        else:
+            self.engine = _engine(model, device)
         self.reset()
 
+    # Constructor aliases mirroring the reference's new/from_model/with_model
+    # (ownership distinctions do not exist in Python; all share the model).
+    @classmethod
+    def new(cls, device="cpu", engine: str = "torch") -> "DenoiseState":
+        return cls(None, device, engine)
+
+    @classmethod
+    def from_model(cls, model, device="cpu", engine: str = "torch") -> "DenoiseState":
+        return cls(model, device, engine)
+
+    with_model = from_model
+
     def reset(self) -> None:
-        self.carry = init_batch_carry(self.engine.model.meta, 1, self.engine.device)
+        if self.backend == "native":
+            self._nstate.reset()
+        else:
+            self.carry = init_batch_carry(self.engine.model.meta, 1, self.engine.device)
 
     def process_frame(self, frame) -> tuple[np.ndarray, float]:
         """Denoise one 480-sample frame; returns (output, vad_probability)."""
         frame = np.asarray(frame, np.float32)
         if frame.shape != (FRAME_SIZE,):
             raise ValueError(f"expected frame of shape ({FRAME_SIZE},)")
+        if self.backend == "native":
+            return self._nstate.process_frame(frame)
         x = torch.as_tensor(frame[None], device=self.engine.device)
         self.carry, out, vad = frame_step(self.engine.rnn, self.carry, x, self.engine.weights)
         return out[0].cpu().numpy(), float(vad[0])
 
     def process_chunk(self, frames) -> tuple[np.ndarray, np.ndarray]:
         """Denoise (T, 480) frames in one engine call; returns (out, vad)."""
-        frames = np.asarray(frames, np.float32)
+        frames = np.ascontiguousarray(frames, np.float32)
         if frames.ndim != 2 or frames.shape[1] != FRAME_SIZE:
             raise ValueError(f"expected frames of shape (T, {FRAME_SIZE})")
+        if self.backend == "native":
+            return self._nstate.process_frames(frames)
         self.carry, out, vad = process_frames(self.engine, self.carry, frames)
         return out.cpu().numpy(), vad.cpu().numpy()
 

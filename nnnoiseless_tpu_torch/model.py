@@ -9,8 +9,9 @@ is at ``i * nb_neurons + j``) and biases.  GRU layers hold
 ``input_weights[nb_inputs * 3n]``, ``recurrent_weights[n * 3n]`` and
 ``bias[3n]`` with the update/reset/candidate gates at offsets 0/n/2n.
 
-This is the parser of ``nnnoiseless_tpu/model.py``, copied so that the port
-never imports the JAX package.  Weights stay as their raw int8 values in
+This is the parser, serializer and text-format converter of
+``nnnoiseless_tpu/model.py``, copied so that the port never imports the JAX
+package.  Weights stay as their raw int8 values in
 float32 arrays shaped for ``x @ W``; the 1/256 scale is applied to the
 pre-activations (ops/rnn.py).
 """
@@ -91,6 +92,19 @@ class RnnModel:
         return _parse(np.frombuffer(data, dtype=np.int8))
 
     @classmethod
+    def try_from_bytes(cls, data: bytes):
+        """Like :meth:`from_bytes` but returns ``None`` on invalid input,
+        mirroring the reference's ``Option``-returning API (rnn.rs:75)."""
+        try:
+            return cls.from_bytes(data)
+        except ModelParseError:
+            return None
+
+    # The reference's zero-copy constructor (rnn.rs:92) is the same parse
+    # here: Python has no owned-versus-borrowed distinction.
+    from_static_bytes = from_bytes
+
+    @classmethod
     def from_file(cls, path) -> "RnnModel":
         with open(path, "rb") as f:
             return cls.from_bytes(f.read())
@@ -99,6 +113,30 @@ class RnnModel:
     def default(cls) -> "RnnModel":
         """The built-in 87,521-byte model."""
         return cls.from_file(DEFAULT_WEIGHTS)
+
+    def to_bytes(self) -> bytes:
+        """Serialize back to the ``.rnn`` binary format (round-trip exact);
+        raises ValueError for weights that are not int8 values."""
+        out = []
+        for name in LAYERS:
+            m = getattr(self.meta, name)
+            out.append(np.array([m.nb_inputs, m.nb_neurons, m.activation], dtype=np.int8))
+            for key in ("wi", "wr", "b") if name in GRU_LAYERS else ("w", "b"):
+                a = np.asarray(self.params[name][key], dtype=np.float32).reshape(-1)
+                ints = a.astype(np.int64)
+                if not np.array_equal(ints.astype(np.float32), a) or not np.all(np.abs(ints + 0.5) < 128):
+                    raise ValueError("model weights are not integer-valued int8")
+                out.append(ints.astype(np.int8))
+        return b"".join(a.tobytes() for a in out)
+
+
+def convert_rnnoise(text: str) -> bytes:
+    """Convert the 'rnnoise-nu model file version 1' text format to binary
+    (train/convert_rnnoise.py: integers are taken mod 256 as raw bytes)."""
+    lines = text.split("\n", 1)
+    if lines[0].strip() != "rnnoise-nu model file version 1":
+        raise ModelParseError("unexpected rnnoise text model header")
+    return bytes(bytearray(int(v) % 256 for v in lines[1].split()))
 
 
 def _parse(data: np.ndarray) -> RnnModel:

@@ -22,7 +22,15 @@ src/denoise.rs:95-116):
 :func:`frame_loop` launches ``csrc/frame_kernel.cu`` for CUDA tensors and
 runs :func:`frame_loop_plain` for CPU tensors.  Both return the packed
 ``(T, B, 512)`` output (frame in lanes 0:480, vad 480, period 481, pitch
-gain 482, zeros after) and the new carry arrays.
+gain 482, zeros after) and the new carry arrays.  ``skip`` stubs out
+stages to attribute the kernel's time (``tools/attrib.py``), as the TPU
+kernel's knob does (``frame_kernel.py:596-756`` there); see SKIP_STAGES.
+
+Kernel K4 replaces ``candidates_pallas`` there: the 105 candidate lanes
+of ``ops/pitch.py::doubling_candidates`` from precomputed tables, with the
+TPU kernel's rule that a lookup off the table reads 0.  :func:`candidates`
+launches ``csrc/candidates_kernel.cu`` for CUDA tensors and runs
+:func:`candidates_plain` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -36,11 +44,11 @@ from .. import _build
 from ..pipeline import (
     DenoiseCarry, FeatureState, _pitch_filter, cepstrum, frame_features, log_spectrum,
 )
-from ..constants import CEPS_MEM, FRAME_SIZE, NB_BANDS, PITCH_BUF_SIZE, WINDOW_SIZE
+from ..constants import CEPS_MEM, FRAME_SIZE, NB_BANDS, PITCH_BUF_SIZE, PITCH_MAX_DS, WINDOW_SIZE
 from ..tables import BAND_CORR_MATRIX, BAND_INTERP_MATRIX, DCT_TABLE, TANSIG_TABLE
 from .bands import band_energies, interp_band_gain
 from .fft import dft_bases
-from .pitch import N_CAND, remove_doubling_from_candidates
+from .pitch import N_CAND, N_LAGS, candidate_lanes, remove_doubling_from_candidates
 from .rnn import Rnn, RnnState
 from .rnn_kernel import pack_weights
 
@@ -50,8 +58,20 @@ OFF_PGAIN = 482
 OUT_LANES = 512
 _OFF = PITCH_BUF_SIZE - WINDOW_SIZE  # 768
 
-# Kernel launches since the last reset (the plain version does not count).
+# Kernel launches since the last reset (the plain versions do not count):
+# K2 in ``launches``, K4 in ``cand_launches``.
 launches = 0
+cand_launches = 0
+
+# Stages the ``skip`` knob stubs out, bit i of the kernel's mask for stage i:
+#   rd    octave removal: period max(2 t0, 60), pitch gain 0
+#   lag0  lag-0 analysis: x = [filt, filt, filt[:2]], ceps = ex, never silent
+#   dft   the pitch-lag window and its DFT: p = x
+#   feat  features: [ceps, ceps[:20]], no silence mask
+#   rnn   the RNN: gains |f[:22]| 0.01, vad f[0], states unchanged
+#   comb  the comb filter: x_comb = x
+#   inv   the inverse DFT: out = x_final[:480] + synth, synth unchanged
+SKIP_STAGES = ("rd", "lag0", "dft", "feat", "rnn", "comb", "inv")
 
 # carry arrays, in kernel order, with their per-stream shapes
 CARRY_SHAPES = (
@@ -67,9 +87,19 @@ CARRY_SHAPES = (
 )
 
 
-def frame_loop_plain(rnn: Rnn, carry: tuple, filt: torch.Tensor, cand: torch.Tensor):
+def _skip_mask(skip) -> int:
+    unknown = set(skip) - set(SKIP_STAGES)
+    if unknown:
+        raise ValueError(f"unknown skip stages {sorted(unknown)}; known: {SKIP_STAGES}")
+    return sum(1 << SKIP_STAGES.index(name) for name in set(skip))
+
+
+def frame_loop_plain(rnn: Rnn, carry: tuple, filt: torch.Tensor, cand: torch.Tensor,
+                     skip: tuple = ()):
     """The plain PyTorch version: a loop over T of batched tensor ops (the
-    analysis tail and the comb filter are pipeline.py's)."""
+    analysis tail and the comb filter are pipeline.py's), with the stubs
+    of ``skip`` (SKIP_STAGES, any combination)."""
+    _skip_mask(skip)
     mem, synth, cmem, hv, hn, hd, lastg, period, pgain = carry
     fwd, inv = dft_bases(filt.device)
     t_count, b, _ = filt.shape
@@ -78,27 +108,49 @@ def frame_loop_plain(rnn: Rnn, carry: tuple, filt: torch.Tensor, cand: torch.Ten
     lanes960 = torch.arange(WINDOW_SIZE, device=filt.device)
     for t in range(t_count):
         mem = torch.cat([mem[:, FRAME_SIZE:], filt[t]], dim=1)
-        x = torch.matmul(mem[:, _OFF:], fwd)  # (B, 962) lag-0 spectrum
-        ex = band_energies(x)
-        ly, energy = log_spectrum(ex)
-        sil = energy < 0.04
-        period, pgain = remove_doubling_from_candidates(cand[t], period, pgain)
-        idx = (_OFF - period.to(torch.int64))[:, None] + lanes960
-        p = torch.matmul(mem.gather(1, idx), fwd)  # spectrum at the pitch lag
+        if "lag0" in skip:
+            x = torch.cat([filt[t], filt[t], filt[t, :, :2]], dim=1)
+            ex = band_energies(x)
+            sil = torch.zeros((b,), dtype=torch.bool, device=filt.device)
+            ceps = ex
+        else:
+            x = torch.matmul(mem[:, _OFF:], fwd)  # (B, 962) lag-0 spectrum
+            ex = band_energies(x)
+            ly, energy = log_spectrum(ex)
+            sil = energy < 0.04
+            ceps = cepstrum(ly)
+        if "rd" in skip:
+            period = torch.clamp(cand[t, :, 0].to(torch.int32) * 2, min=60)
+            pgain = cand[t, :, 1] * 0.0
+        else:
+            period, pgain = remove_doubling_from_candidates(cand[t], period, pgain)
+        if "dft" in skip:
+            p = x
+        else:
+            idx = (_OFF - period.to(torch.int64))[:, None] + lanes960
+            p = torch.matmul(mem.gather(1, idx), fwd)  # spectrum at the pitch lag
         ep = band_energies(p)
-        features, exp, cmem = frame_features(cmem, x, p, ex, ep, sil, cepstrum(ly), period)
+        features, exp, cmem = frame_features(cmem, x, p, ex, ep, sil, ceps, period)
+        if "feat" in skip:
+            features = torch.cat([ceps, ceps[:, :20]], dim=1)
 
-        st, gains, vad = rnn(RnnState(hv, hn, hd), features)
         s1 = sil[:, None]
-        hv, hn, hd = (torch.where(s1, old, new) for old, new in zip((hv, hn, hd), st))
+        if "rnn" in skip:
+            gains, vad = features[:, :NB_BANDS].abs() * 0.01, features[:, 0]
+        else:
+            st, gains, vad = rnn(RnnState(hv, hn, hd), features)
+            hv, hn, hd = (torch.where(s1, old, new) for old, new in zip((hv, hn, hd), st))
         g2 = torch.maximum(gains, 0.6 * lastg)
-        x_comb = _pitch_filter(x, p, ex, ep, exp, gains)
+        x_comb = x if "comb" in skip else _pitch_filter(x, p, ex, ep, exp, gains)
         x_final = torch.where(s1, x, x_comb * interp_band_gain(g2))
         lastg = torch.where(s1, lastg, g2)
 
-        y = torch.matmul(x_final, inv)  # (B, 960)
-        packed[t, :, :FRAME_SIZE] = y[:, :FRAME_SIZE] + synth
-        synth = y[:, FRAME_SIZE:]
+        if "inv" in skip:
+            packed[t, :, :FRAME_SIZE] = x_final[:, :FRAME_SIZE] + synth
+        else:
+            y = torch.matmul(x_final, inv)  # (B, 960)
+            packed[t, :, :FRAME_SIZE] = y[:, :FRAME_SIZE] + synth
+            synth = y[:, FRAME_SIZE:]
         packed[t, :, OFF_VAD] = torch.where(sil, 0.0, vad)
         packed[t, :, OFF_PERIOD] = period.to(torch.float32)
         packed[t, :, OFF_PGAIN] = pgain
@@ -142,10 +194,14 @@ def _check(carry, filt, cand):
             raise TypeError(f"{name} must be float32 on {filt.device}")
 
 
-def frame_loop_cuda(rnn: Rnn, weights: tuple, carry: tuple, filt, cand):
+def frame_loop_cuda(rnn: Rnn, weights: tuple, carry: tuple, filt, cand, skip: tuple = ()):
     """Launch K2 on the current CUDA stream.  ``weights``:
-    ops/rnn_kernel.py::pack_weights."""
+    ops/rnn_kernel.py::pack_weights.  The kernel is built for ``skip`` of
+    at most one stage."""
     global launches
+    mask = _skip_mask(skip)
+    if len(set(skip)) > 1:
+        raise ValueError(f"the frame kernel stubs one stage at a time, got {tuple(skip)}")
     _check(carry, filt, cand)
     if not rnn.standard_topology():
         raise ValueError("the frame kernel is built for the standard model topology")
@@ -161,7 +217,7 @@ def frame_loop_cuda(rnn: Rnn, weights: tuple, carry: tuple, filt, cand):
         ptr = lambda ts: [a.data_ptr() for a in ts]
         err = _build.library().nnt_frame_loop(
             *ptr(tables), *ptr(weights), *ptr(carry), filt.data_ptr(), cand.data_ptr(),
-            packed.data_ptr(), *ptr(out), b, t_count, stream,
+            packed.data_ptr(), *ptr(out), b, t_count, mask, stream,
         )
         _build.check(err, "nnt_frame_loop")
         launches += 1
@@ -171,18 +227,19 @@ def frame_loop_cuda(rnn: Rnn, weights: tuple, carry: tuple, filt, cand):
 
 
 def frame_loop(rnn: Rnn, carry: tuple, filt: torch.Tensor, cand: torch.Tensor,
-               weights: tuple | None = None):
+               weights: tuple | None = None, skip: tuple = ()):
     """Run the frame loop over a chunk: carry arrays (see CARRY_SHAPES),
     time-major ``filt`` (T, B, 480) and ``cand`` (T, B, 105) -> (packed
-    (T, B, 512), new carry arrays)."""
+    (T, B, 512), new carry arrays).  ``skip``: stages to stub out
+    (SKIP_STAGES), for attribution only."""
     if filt.is_cuda:
         if weights is None:
             weights = pack_weights(rnn, filt.device)
-        return frame_loop_cuda(rnn, weights, carry, filt, cand)
+        return frame_loop_cuda(rnn, weights, carry, filt, cand, skip)
     if filt.device.type != "cpu":
         raise ValueError(f"unsupported device {filt.device}")
     _check(carry, filt, cand)
-    return frame_loop_plain(rnn, carry, filt, cand)
+    return frame_loop_plain(rnn, carry, filt, cand, skip)
 
 
 def carry_arrays(carry) -> tuple:
@@ -201,11 +258,12 @@ def carry_arrays(carry) -> tuple:
 
 
 def run_frame_loop(rnn: Rnn, carry, pre, weights: tuple | None = None,
-                   return_trace: bool = False):
+                   return_trace: bool = False, skip: tuple = ()):
     """Adapter: DenoiseCarry + FramePre -> (carry', out (B, T, 480),
     vad (B, T)), plus (periods (B, T) int32, gains (B, T)) with
-    ``return_trace``.  ``hp_mem`` passes through (the chunk filter owns it)."""
-    packed, cf = frame_loop(rnn, carry_arrays(carry), pre.filtered, pre.cand, weights)
+    ``return_trace``.  ``hp_mem`` passes through (the chunk filter owns it).
+    ``skip``: see :func:`frame_loop`."""
+    packed, cf = frame_loop(rnn, carry_arrays(carry), pre.filtered, pre.cand, weights, skip)
     mem, synth, cmem, hv, hn, hd, lastg, per, pg = cf
     b = mem.shape[0]
     new_carry = DenoiseCarry(
@@ -229,3 +287,71 @@ def run_frame_loop(rnn: Rnn, carry, pre, weights: tuple | None = None,
         )
         return new_carry, out, vad, trace
     return new_carry, out, vad
+
+
+# ---------------------------------------------------------------------------
+# Kernel K4: candidate lanes from precomputed tables
+# ---------------------------------------------------------------------------
+
+
+def candidates_plain(corr: torch.Tensor, yy: torch.Tensor, xx: torch.Tensor,
+                     pidx: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of K4 (``frame_kernel.py:361-402`` of the
+    JAX package): ``t0 = min(pidx // 2, 383)``, ``corr_at(t) = corr[384 -
+    t]``, ``yy_at(t) = yy[t]``, and a lookup outside [0, 385) reads 0."""
+
+    def lookup(table, i):
+        got = table.gather(-1, torch.clamp(i, 0, N_LAGS - 1)[:, None])[:, 0]
+        return torch.where((i >= 0) & (i < N_LAGS), got, 0.0)
+
+    return candidate_lanes(
+        torch.clamp(pidx.to(torch.int64) // 2, max=PITCH_MAX_DS - 1), xx,
+        lambda t: lookup(corr, PITCH_MAX_DS - t), lambda t: lookup(yy, t),
+    )
+
+
+def _check_cand(corr, yy, xx, pidx):
+    r = corr.shape[0]
+    if corr.ndim != 2 or corr.shape[1] != N_LAGS or yy.shape != corr.shape:
+        raise ValueError(f"corr and yy must be (R, {N_LAGS}), got {tuple(corr.shape)}, {tuple(yy.shape)}")
+    if xx.shape != (r,) or pidx.shape != (r,):
+        raise ValueError(f"xx and pidx must be ({r},), got {tuple(xx.shape)}, {tuple(pidx.shape)}")
+    for name, arr in (("corr", corr), ("yy", yy), ("xx", xx)):
+        if arr.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {arr.dtype}")
+    if pidx.dtype != torch.int32:
+        raise TypeError(f"pidx must be int32, got {pidx.dtype}")
+    if not all(a.device == corr.device for a in (yy, xx, pidx)):
+        raise ValueError("corr, yy, xx and pidx must be on one device")
+
+
+def candidates_cuda(corr: torch.Tensor, yy: torch.Tensor, xx: torch.Tensor,
+                    pidx: torch.Tensor) -> torch.Tensor:
+    """Launch K4 on the current CUDA stream; returns (R, 105) f32."""
+    global cand_launches
+    _check_cand(corr, yy, xx, pidx)
+    if not all(a.is_contiguous() for a in (corr, yy, xx, pidx)):
+        raise ValueError("candidate kernel operands must be contiguous")
+    r = corr.shape[0]
+    out = torch.empty((r, N_CAND), dtype=torch.float32, device=corr.device)
+    if r:
+        stream = torch.cuda.current_stream(corr.device).cuda_stream
+        err = _build.library().nnt_candidates(
+            corr.data_ptr(), yy.data_ptr(), xx.data_ptr(), pidx.data_ptr(), out.data_ptr(), r, stream
+        )
+        _build.check(err, "nnt_candidates")
+        cand_launches += 1
+    return out
+
+
+def candidates(corr: torch.Tensor, yy: torch.Tensor, xx: torch.Tensor,
+               pidx: torch.Tensor) -> torch.Tensor:
+    """(R, 385) correlation ``corr`` and energy lookup ``yy``
+    (``ops/pitch.py::doubling_tables``), (R,) ``xx``, (R,) int32 ``pidx``
+    -> (R, 105) candidate lanes."""
+    if corr.is_cuda:
+        return candidates_cuda(corr, yy, xx, pidx)
+    if corr.device.type != "cpu":
+        raise ValueError(f"unsupported device {corr.device}")
+    _check_cand(corr, yy, xx, pidx)
+    return candidates_plain(corr, yy, xx, pidx)

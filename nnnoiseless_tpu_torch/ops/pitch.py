@@ -189,15 +189,28 @@ def pitch_search(y: torch.Tensor, corr: torch.Tensor, energies: torch.Tensor):
     return 2 * best2 - torch.where(interior, offset, 0)
 
 
-def doubling_candidates(
-    corr: torch.Tensor, energies: torch.Tensor, pitch_idx: torch.Tensor
-) -> torch.Tensor:
-    """The frame-local candidate lanes of octave removal (pitch.rs:118-221):
-    the JAX package's ``doubling_tables`` and ``doubling_candidates`` in one.
+def doubling_tables(y: torch.Tensor, corr: torch.Tensor | None = None,
+                    energies: torch.Tensor | None = None):
+    """Frame-local tables of octave removal for whitened (..., 864) windows:
+    (corr_full, yy_lookup, xx), as the JAX package's ``doubling_tables``.
 
-    ``corr_at(t) = corr[384 - t]``; the reference's running energy table is
-    ``yy(t) = max(energies[384 - t], 0)`` and ``xx = yy(0)``.  Returns
-    (..., 105) f32, laid out::
+    ``corr_full`` (..., 385) is ``dot(y[384:864], y[s:s+480])``;
+    ``yy_lookup[k] = max(energies[384 - k], 0)``, the reference's running
+    energy table (pitch.rs:137-142) as a flip of the forward window
+    energies; ``xx = yy_lookup[..., 0]``.  Shared ``corr``/``energies``
+    tables are used as given."""
+    if corr is None:
+        corr = sliding_dot(y[..., PITCH_MAX_DS:], y, N_LAGS)
+    if energies is None:
+        energies = window_energies(y, PITCH_FRAME_DS, N_LAGS)
+    yy_lookup = torch.clamp(energies.flip(-1), min=0.0)
+    return corr, yy_lookup, yy_lookup[..., 0]
+
+
+def candidate_lanes(t0: torch.Tensor, xx: torch.Tensor, corr_at, yy_at) -> torch.Tensor:
+    """The 105 octave-removal lanes for (...) int64 ``t0``, with the
+    caller's lookups ``corr_at(t)`` and ``yy_at(t)`` (the CUDA kernels
+    share the same walk, csrc/candidate_lanes.cuh).  Layout::
 
         [0] t0  [1] g0  [2] xy0  [3] yy0
         [4:18] t1 (k = 2..15)  [18:32] xy_k  [32:46] yy_k  [46:60] g1_k
@@ -205,14 +218,6 @@ def doubling_candidates(
         for c in [t0, t1_2 .. t1_15]
     """
     maxp = PITCH_MAX_DS
-    t0 = torch.clamp(pitch_idx // 2, max=maxp - 1)
-    xx = torch.clamp(energies[..., maxp], min=0.0)
-
-    def corr_at(t):
-        return corr.gather(-1, (maxp - t)[..., None])[..., 0]
-
-    def yy_at(t):
-        return torch.clamp(energies.gather(-1, (maxp - t)[..., None])[..., 0], min=0.0)
 
     def pitch_gain(xy, yy):
         return xy / torch.sqrt(1.0 + xx * yy)
@@ -240,6 +245,32 @@ def doubling_candidates(
         + [corr_at(t + 1) for t in cands]
     )
     return torch.stack(lanes, dim=-1)
+
+
+def doubling_candidates(
+    corr: torch.Tensor, energies: torch.Tensor, pitch_idx: torch.Tensor
+) -> torch.Tensor:
+    """The frame-local candidate lanes of octave removal (pitch.rs:118-221):
+    the JAX package's ``doubling_tables`` and ``doubling_candidates`` in one,
+    (..., 105) f32 in the layout of :func:`candidate_lanes`.
+
+    ``corr_at(t) = corr[384 - t]``; the reference's running energy table is
+    ``yy(t) = max(energies[384 - t], 0)`` and ``xx = yy(0)``.  A lookup
+    outside [0, 385) takes the nearest end of the table, as XLA's gather
+    does: ``corr_at(-1)``, reached for pitch indices below 16, reads
+    ``corr[384]``.
+    """
+    maxp = PITCH_MAX_DS
+
+    def at(table, t):
+        return table.gather(-1, torch.clamp(maxp - t, 0, maxp)[..., None])[..., 0]
+
+    return candidate_lanes(
+        torch.clamp(pitch_idx // 2, max=maxp - 1),
+        torch.clamp(energies[..., maxp], min=0.0),
+        lambda t: at(corr, t),
+        lambda t: torch.clamp(at(energies, t), min=0.0),
+    )
 
 
 def remove_doubling_from_candidates(

@@ -7,7 +7,8 @@ a card (and without JAX) run::
 
 Bars: those of chip_smoke.py (pitch decisions may flip on near-ties, the
 sums run in another order than cuDNN's; waveforms as tests/conftest.py's
-accelerator bars; the RNN cell within 2e-5, the window bit-exact).
+accelerator bars; the RNN cell within 2e-5, the window bit-exact; the
+candidate lanes' lags exact and their values within 1e-5 relative).
 """
 
 import numpy as np
@@ -171,3 +172,59 @@ def test_wrappers_refuse_bad_operands(device, engine):
     state = torch.zeros((2, 24), device=device)
     with pytest.raises(ValueError):
         rk.rnn_step_cuda(engine.weights, state, state, state, torch.zeros((2, 42), device=device))
+
+
+def test_candidate_kernel_matches_plain(device):
+    """K4 on seeded tables, with pitch indices over [0, 768) and the small
+    ones whose lookups fall off the tables (they read 0)."""
+    rng = np.random.RandomState(6)
+    r = 300
+    corr = torch.as_tensor((rng.randn(r, 385) * 1e3).astype(np.float32), device=device)
+    yy = torch.as_tensor(np.abs(rng.randn(r, 385) * 1e4).astype(np.float32), device=device)
+    xx = torch.as_tensor(np.abs(rng.randn(r) * 1e4).astype(np.float32), device=device)
+    pidx = rng.randint(0, 768, size=r)
+    pidx[:20] = np.arange(20)
+    pidx = torch.as_tensor(pidx.astype(np.int32), device=device)
+    fk.cand_launches = 0
+    got = fk.candidates(corr, yy, xx, pidx)
+    want = fk.candidates_plain(corr, yy, xx, pidx)
+    assert fk.cand_launches == 1
+    t_lanes = [0] + list(range(4, 18))
+    torch.testing.assert_close(got[:, t_lanes], want[:, t_lanes], rtol=0, atol=0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+def _skip_inputs(device, engine):
+    # the clip at 1/4096: the lag0 stub's cepstra are band energies, which
+    # at full scale drive the relu GRU states to ~1e16 (ill-conditioned)
+    b, t = 13, 6
+    frames = torch.as_tensor(_frames(b, t, 7) / 4096.0, device=device)
+    carry = nt.init_batch_carry(engine.model.meta, b, device)
+    pre, _ = precompute_chunk(carry.feat.input_mem, carry.feat.hp_mem, frames)
+    return fk.carry_arrays(carry), pre
+
+
+def test_frame_kernel_skip_none_is_production(device, engine):
+    ca, pre = _skip_inputs(device, engine)
+    prod = fk.frame_loop_cuda(engine.rnn, engine.weights, ca, pre.filtered, pre.cand)
+    none = fk.frame_loop_cuda(engine.rnn, engine.weights, ca, pre.filtered, pre.cand, skip=())
+    for a, b in zip((prod[0], *prod[1]), (none[0], *none[1])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("stage", ["rd", "lag0", "dft", "feat", "rnn", "comb", "inv"])
+def test_frame_kernel_skip_matches_plain(device, engine, stage):
+    """Each stub of K2 launches, gives finite output and meets the
+    waveform bars against the plain version's stub."""
+    ca, pre = _skip_inputs(device, engine)
+    fk.launches = 0
+    packed_k, carry_k = fk.frame_loop(engine.rnn, ca, pre.filtered, pre.cand, engine.weights, skip=(stage,))
+    assert fk.launches == 1
+    packed_p, carry_p = fk.frame_loop_plain(engine.rnn, ca, pre.filtered, pre.cand, skip=(stage,))
+    assert bool(torch.isfinite(packed_k).all())
+    d = (packed_k[..., :480] - packed_p[..., :480]).double().abs()
+    assert float((d**2).sum() / (packed_p[..., :480].double() ** 2).sum()) < 1e-3
+    assert float((packed_k[..., 481] == packed_p[..., 481]).double().mean()) >= 0.98
+    other = "rd" if stage == "inv" else "inv"
+    with pytest.raises(ValueError):  # the kernel stubs one stage at a time
+        fk.frame_loop(engine.rnn, ca, pre.filtered, pre.cand, engine.weights, skip=(stage, other))

@@ -93,3 +93,38 @@ def test_padded_batch_matches(testing_raw, default_model):
     for c_j, out_j in (ref[:2], fused[:2]):
         np.testing.assert_allclose(out.numpy(), np.asarray(out_j), atol=0.01, rtol=1e-5)
         np.testing.assert_array_equal(c.feat.pitch_period.numpy(), np.asarray(c_j.feat.pitch_period))
+
+
+@pytest.mark.parametrize("skip", [(), ("lag0",), ("rd",), ("dft",), ("feat",), ("rnn",), ("comb",), ("inv",)])
+def test_skip_matches_pallas(testing_raw, default_model, skip):
+    """The attribution knob: each stage's stub in the plain version against
+    the Pallas kernel's (frame_kernel.py:596-756 there), at B=4, T=3.
+
+    The clip is scaled by 1/4096: the lag0 stub feeds the band energies
+    to the RNN as cepstra, which at full scale (up to 8e8) drive the relu
+    GRU states to ~1e16, where both sides' rounding decides the sign of
+    sums that cancel."""
+    b, t = 4, 3
+    frames = jnp.asarray(_frames(testing_raw, b, t) / 4096.0)
+    params, meta = default_model.params, default_model.meta
+    carry = jax_init(meta, b)
+    pre, _ = jax_precompute(carry.feat.input_mem, carry.feat.hp_mem, frames, lag0=False)
+    c_j, out_j, vad_j, (per_j, gain_j) = run_fused_scan(
+        params, meta, carry, pre, interpret=True, block=4, skip=skip, return_trace=True
+    )
+    pre_t = FramePre(
+        filtered=torch.from_numpy(np.array(pre.filtered)), cand=torch.from_numpy(np.array(pre.cand))
+    )
+    rnn = Rnn.from_params(params, meta, "cpu")
+    c, out, vad, (per, gain) = fk.run_frame_loop(
+        rnn, init_carry(meta, b, "cpu"), pre_t, return_trace=True, skip=skip
+    )
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), atol=0.01, rtol=1e-5)
+    np.testing.assert_allclose(vad.numpy(), np.asarray(vad_j), atol=1e-5, rtol=1e-5)
+    np.testing.assert_array_equal(per.numpy(), np.asarray(per_j))
+    np.testing.assert_allclose(gain.numpy(), np.asarray(gain_j), atol=1e-6)
+    np.testing.assert_allclose(c.synthesis_mem.numpy(), np.asarray(c_j.synthesis_mem), atol=0.01, rtol=1e-5)
+    np.testing.assert_allclose(c.feat.cepstral_mem.numpy(), np.asarray(c_j.feat.cepstral_mem), atol=1e-5, rtol=1e-5)
+    for a, w in zip(c.rnn, c_j.rnn):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(c.lastg.numpy(), np.asarray(c_j.lastg), atol=1e-4)

@@ -23,8 +23,9 @@ _PROBE = """
 import sys
 import numpy as np
 import nnnoiseless_tpu_torch as nt
-from nnnoiseless_tpu_torch import chunk, flags, pipeline
+from nnnoiseless_tpu_torch import audio_io, chunk, cli, flags, native, pipeline, signal
 from nnnoiseless_tpu_torch.ops import frame_kernel as fk, pitch_kernel as pk, rnn_kernel as rk, window
+from nnnoiseless_tpu_torch.tools import attrib, corr, profile, trace
 assert "jax" not in sys.modules, "importing the port loaded jax"
 raw = np.fromfile("tests/data/testing.raw", "<i2").astype(np.float32)[: 6 * 480]
 for fused in (True, False):
@@ -33,8 +34,10 @@ for fused in (True, False):
     assert out.shape == (5 * 480,) and np.isfinite(out).all()
 out, vad = nt.DenoiseState(device="cpu").process_frame(raw[:480])
 assert out.shape == (480,) and np.isfinite(out).all()
-counts = (pk.launches, pk.stacked_launches, fk.launches, rk.launches, window.launches)
-assert counts == (0,) * 5, counts
+assert len(list(nt.DenoiseSignal(raw / 32768.0, latency_frames=2))) == 5 * 480
+assert cli.main(["tests/data/testing.raw", "/dev/null", "--device", "cpu"]) == 0
+counts = (pk.launches, pk.stacked_launches, fk.launches, fk.cand_launches, rk.launches, window.launches)
+assert counts == (0,) * 6, counts
 assert "jax" not in sys.modules, "running the port loaded jax"
 print("ok")
 """
@@ -61,6 +64,9 @@ def test_wrappers_take_only_cpu_or_cuda():
         fk.frame_loop(None, carry, torch.zeros((1, 2, 480), device="meta"), torch.zeros((1, 2, 105), device="meta"))
     with pytest.raises(ValueError):
         pk.pitch_analysis_stacked(torch.zeros((2, 864), device="meta"))
+    t385 = torch.zeros((2, 385), device="meta")
+    with pytest.raises(ValueError):
+        fk.candidates(t385, t385, torch.zeros(2, device="meta"), torch.zeros(2, dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError):
         window.window_at_lag(torch.zeros((2, 1728), device="meta"), torch.zeros(2, dtype=torch.int32, device="meta"))
     rnn = nt.Engine(nt.RnnModel.default(), "cpu").rnn
@@ -77,6 +83,13 @@ def test_wrappers_check_shapes():
     carry = tuple(torch.zeros((2,) + shape) for _, shape in fk.CARRY_SHAPES)
     with pytest.raises(TypeError):  # period must be int32
         fk.frame_loop(None, carry, torch.zeros((1, 2, 480)), torch.zeros((1, 2, 105)))
+    with pytest.raises(ValueError):  # an unknown stage
+        fk.frame_loop_plain(None, carry, torch.zeros((1, 2, 480)), torch.zeros((1, 2, 105)), skip=("bogus",))
+    t385, r2 = torch.zeros((2, 385)), torch.zeros(2)
+    with pytest.raises(ValueError):
+        fk.candidates(t385, t385[:, :384], r2, torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(TypeError):  # pidx must be int32
+        fk.candidates(t385, t385, r2, torch.zeros(2, dtype=torch.int64))
 
 
 @pytest.mark.parametrize("alone", [False, True])

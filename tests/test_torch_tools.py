@@ -1,0 +1,80 @@
+"""The port's tools on the CPU: the pitch trace against the native engine
+and the JAX package's trace, the sine benchmark and its profiler trace,
+the correlation tool, and the attribution tool's sections at B=2, T=4."""
+
+import json
+
+import numpy as np
+import pytest
+
+from nnnoiseless_tpu_torch import native
+from nnnoiseless_tpu_torch.tools import attrib, corr, profile, trace
+
+
+@pytest.fixture(scope="module")
+def port_trace(testing_raw):
+    return trace.pitch_trace(testing_raw, device="cpu")
+
+
+def test_pitch_trace_lag_exact_against_native(port_trace, testing_raw):
+    """The bar of tests/test_pitch_trace.py: at most 2 of 100 periods off
+    the native engine, by at most 2; gains within 5e-3 where they agree."""
+    native.load_library()
+    pt, gt = port_trace
+    pn, gn = trace.pitch_trace_native(testing_raw)
+    neq = pt != pn
+    assert neq.sum() <= 2, (np.nonzero(neq)[0], pt[neq], pn[neq])
+    if neq.any():
+        assert np.abs(pt[neq].astype(int) - pn[neq].astype(int)).max() <= 2
+    assert np.abs(gt[~neq] - gn[~neq]).max() < 5e-3
+
+
+def test_pitch_trace_matches_jax(port_trace, testing_raw):
+    from nnnoiseless_tpu.tools.trace import pitch_trace as jax_pitch_trace
+
+    pj, gj = jax_pitch_trace(testing_raw)
+    pt, gt = port_trace
+    np.testing.assert_array_equal(pt, pj)
+    # gain lanes' bar of tests/test_torch_pitch_kernel.py: the JAX chain's
+    # correlation is an FFT product, the port's a direct sum
+    np.testing.assert_allclose(gt, gj, atol=1e-3)
+
+
+def test_sine_bench_and_chrome_trace(tmp_path):
+    sig = profile.sine_signal(0.2)
+    assert sig.shape == (9600,) and np.max(np.abs(sig)) <= 16000
+    stats = profile.sine_bench(batch=2, seconds=0.2, trace_dir=tmp_path, device="cpu")
+    assert stats["device"] == "cpu" and stats["batch"] == 2 and stats["frames"] == 20
+    assert stats["frames_per_sec"] > 0 and stats["realtime_factor"] > 0
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    assert any("aten::" in str(e.get("name", "")) for e in events)
+
+
+def test_corr_tool(tmp_path):
+    rng = np.random.RandomState(0)
+    sig = (rng.randn(1000) * 1000).astype("<i2")
+    assert corr.correlation(sig, sig) == pytest.approx(1.0)
+    assert corr.correlation(np.zeros(10), np.zeros(10)) == 1.0
+    assert corr.correlation(np.zeros(10), np.ones(10)) == 0.0
+    a, b = tmp_path / "a.raw", tmp_path / "b.raw"
+    sig.tofile(a)
+    sig[::-1].copy().tofile(b)
+    assert corr.main([str(a), str(a)]) == 0
+    assert corr.main([str(a), str(b)]) == 1
+    assert corr.main([str(a), str(b), "--threshold", "2"]) == 0
+
+
+def test_attrib_sections_on_cpu():
+    res = attrib.main(["--batches", "2", "--frames", "4", "--device", "cpu", "--reps", "1"])
+    assert set(res) == {"device", "golden", "pitch", "totals", "prefix", "stages"}
+    assert res["golden"]["rel"] < 1e-4 and res["golden"]["max"] <= 2
+    assert res["pitch"]["windows"] == 97 and res["pitch"]["pidx_flips"] == 0
+    assert res["pitch"]["t_lane_diffs"] == 0
+    assert set(res["totals"]["2"]) == {"precompute_ms", "two_phase_ms"}
+    assert set(res["prefix"]["ms"]) == {"biquad", "fwin", "dswin", "full"}
+    assert res["prefix"]["oldchain_ms"] > 0
+    stages = res["stages"]
+    names = {"none", "lag0", "dft", "rd", "feat", "rnn", "comb", "inv"}
+    assert set(stages["ms"]) == names and set(stages["cost_ms"]) == names - {"none"}
+    assert all(stages["finite"].values()) and stages["skip_none_bit_equal"]
+    assert set(stages["launches"].values()) == {0}  # the plain versions on the CPU

@@ -24,7 +24,9 @@ Quick start::
 
     python -m nnnoiseless_tpu_torch.cli in.wav out.wav --device cuda
 
-On CPU tensors every kernel runs its plain PyTorch version instead.
+Every entry point runs on the card (``device="cuda"``) unless the caller
+asks for the CPU: without a card a CUDA device raises, and ``device="cpu"``
+runs each kernel's plain PyTorch version instead.
 """
 
 from .constants import FRAME_SIZE, FREQ_SIZE, NB_BANDS, NB_FEATURES

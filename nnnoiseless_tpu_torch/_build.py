@@ -35,8 +35,8 @@ I = ctypes.c_int
 _SIGNATURES = {
     # ds, ds_stride, w0, cand, pidx, batch, t_count, stream
     "nnt_pitch_analysis": (P, I, P, P, P, I, I, P),
-    # tables: F, IV, band corr, band ranges, interp, dct, tansig;
-    # weights: int8 buffer, offsets (int32), acts (int32);
+    # tables: FFT, band corr, band ranges, interp weights, interp bands,
+    # dct, tansig; weights: int8 buffer, offsets (int32), acts (int32);
     # carries in: mem, synth, cmem, hv, hn, hd, lastg, period, pgain;
     # streams: filt, cand; out: packed;
     # carries out: mem, synth, cmem, hv, hn, hd, lastg, period, pgain;
@@ -52,6 +52,9 @@ _SIGNATURES = {
     "nnt_window_at_lag": (P, P, P, I, P),
     # corr, yy, xx, pidx, out, rows, stream
     "nnt_candidates": (P, P, P, P, P, I, P),
+    # FFT table, rows in, rows out, rows, stream
+    "nnt_rfft960": (P, P, P, I, P),
+    "nnt_irfft960": (P, P, P, I, P),
 }
 
 last_build_seconds = 0.0

@@ -12,32 +12,52 @@
 // and renormalization, the gain hangover and interpolation, the inverse
 // DFT and overlap-add.
 //
-// Layout.  One thread block owns a tile of S = 8 streams and walks all T
-// frames of the chunk in one launch.  The carries are read at the start
-// and written at the end; between frames they live in shared memory (the
-// synthesis tail in the output carry buffer).  The tile's last block masks
-// the streams beyond B instead of padding the batch.  The input history is
-// never shifted in memory: after frame t it is full[480(t+1) + q] of
-// full = [input_mem | filt_0 | filt_1 | ...], read by index (hist()).
+// Layout.  One thread block owns a tile of S streams (S warps, 32 S
+// threads) and walks all T frames of the chunk in one launch.  The
+// carries are read at the start and written at the end; between frames
+// they live in shared memory (the synthesis tail in the output carry
+// buffer).  The tile's last block masks the streams beyond B instead of
+// padding the batch.  The input history is never shifted in memory: after
+// frame t it is full[480(t+1) + q] of full = [input_mem | filt_0 | filt_1
+// | ...], read by index (hist()).
 //
-// What bounds it.  Three 960x962-class contractions per stream-frame (the
-// lag-0 and pitch-lag forward DFTs and the inverse), ~2.8 M multiply-adds,
-// dominate everything else by ~20x.  F and IV are 3.7 MB each: far beyond
-// shared memory, so they stream from L2 (50 MB).  The block stacks the
-// tile's 16 forward windows as one (16 x 960) operand in shared memory;
-// each thread owns 4 output columns for all 16 rows, so one F element read
-// from L2 feeds 16 FMAs, and one shared-memory float4 broadcast feeds 16.
-// The int8-valued weights (87 KB) are read as int8 through L1, exact.
-// Everything after the DFTs is per-stream work of a few thousand
-// operations, spread over the block's 256 threads.  Shared memory is
-// ~100 KB, so two blocks share an SM.
+// Transforms.  The TPU kernel's three dense DFT contractions per
+// stream-frame (the lag-0 and pitch-lag windows through F (960 x 962), the
+// inverse through IV (962 x 960), 2.77 M multiply-adds) are FFTs computed
+// in the block (fft960.cuh): one warp per window, 15-point DFTs in
+// registers and five radix-2 stages across the lanes, ~22 k flops a
+// transform (the function's own, chip_smoke.py::fft960_flops), no basis
+// and no block barrier inside a transform.  The S warps take the 2S
+// forward windows in two rounds and the S inverses in one, each spectrum a
+// 962-float row of shared memory.  The per-bin gain
+// interpolation reads each bin's two band weights (BAND_INTERP_MATRIX has
+// at most two nonzeros a row, in adjacent bands) in the band order of the
+// dense dot, so its result is the dense dot's.
+//
+// What bounds it.  Bytes in and out are ~4.5 KB per stream-frame (filt,
+// cand, the packed output): 1.84 GB at B = 4096, T = 100, 0.55 ms at 3.35
+// TB/s.  Operations are ~0.28 MFLOP per stream-frame (the RNN's 87 k
+// multiply-adds, three FFTs of ~22 k flops, the band sums; chip_smoke.py's
+// kernel_bounds): 113 GFLOP, 1.7 ms at the FP32 peak of 67 TFLOP/s, so
+// operations set the bound.  Neither is what the kernel meets: every
+// frame is a chain of ~30 block barriers, between which the per-stream
+// sections (octave removal, the log-spectrum floor, the RNN's rows) run on
+// a few threads of the block, and the band sums' longest band (160 bins)
+// is a serial loop.  So the kernel is latency-bound: its time is T x the
+// per-frame critical path x the waves of blocks.  A block owns S = 8
+// streams (two blocks, 16 streams an SM): on an H100 (700 W) at B = 4096,
+// T = 100 the kernel took 27.9 ms at S = 8 and 28.4 at S = 4 (PERF.md), so
+// more, smaller tiles an SM do not hide the latency; the skip stubs put
+// ~15 ms of it in the RNN stage.  The int8-valued weights (87 KB) are read
+// as int8 through L1, exact, and the twiddles (12.8 KB) through L1 as
+// well.
 //
 // Stage attribution.  The kernel is a template on a mask of stages to stub
 // out (the TPU kernel's `skip` knob, frame_kernel.py:596-756 there), for
-// timing each stage by its absence.  Mask 0 is the production kernel: every
-// stub is an `if constexpr`, so it compiles to the code it had before the
-// knob.  frame_kernel.cu holds mask 0 and the C entry; frame_kernel_skip.cu
-// the seven single-stage masks, so nvcc builds them side by side.
+// timing each stage by its absence.  Mask 0 is the production kernel:
+// every stub is an `if constexpr`.  frame_kernel.cu holds mask 0 and the C
+// entry; frame_kernel_skip.cu the seven single-stage masks, so nvcc builds
+// them side by side.
 
 #pragma once
 
@@ -45,9 +65,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "fft960.cuh"
 #include "rnn_cell.cuh"
 
 namespace frame {
+
+constexpr int TILE = 8;  // streams per block
 
 // Stages of the skip mask, in the order of ops/frame_kernel.py::SKIP_STAGES.
 enum : int {
@@ -61,9 +84,11 @@ enum : int {
 };
 
 struct Args {
-  const float *F, *IV, *bcorr;
+  const float *tw, *bcorr;  // FFT table (ops/fft.py::fft960_table), band matrix
   const int* branges;
-  const float *interp, *dct, *tansig;
+  const float* iw;  // per bin: the weights of bands ib and ib + 1
+  const int* ib;
+  const float *dct, *tansig;
   const int8_t* w;
   const int *woff, *acts;
   const float *mem, *synth, *cmem, *hv, *hn, *hd, *lastg;
@@ -77,8 +102,8 @@ struct Args {
   int B, T;
 };
 
-// Launch a single-stage skip instance (frame_kernel_skip.cu); returns a
-// CUDA error code, cudaErrorInvalidValue for another mask.
+// Launch a single-stage skip instance (frame_kernel_skip.cu);
+// returns a CUDA error code, cudaErrorInvalidValue for another mask.
 int launch_skip(int skip, const Args& a, cudaStream_t stream);
 
 }  // namespace frame
@@ -86,9 +111,8 @@ int launch_skip(int skip, const Args& a, cudaStream_t stream);
 namespace {
 
 using frame::Args;
+using fft960::Cx;
 
-constexpr int S = 8;  // streams per block
-constexpr int THREADS = 256;
 constexpr int FRAME = 480;
 constexpr int WIN = 960;
 constexpr int FREQ = 481;
@@ -132,11 +156,15 @@ enum : int {
   P_MISC = P_GS + 3 * DH,    // [0] pitch gain [1] vad [2] silence flag
   PS = P_MISC + 4,
 };
-constexpr int U_FLOATS = 2 * S * PACKED;
 constexpr int TAB = 204;  // tansig table, 201 entries
-constexpr int N_INTS = S + 16 + 8;
-constexpr size_t SMEM_BYTES = (size_t)(U_FLOATS + TAB + S * PS) * sizeof(float) + N_INTS * sizeof(int);
-using Cell = rnn_cell::Layout<S, THREADS, PS, P_GS, P_GIN>;
+
+constexpr int S = frame::TILE;  // streams per block
+constexpr int THREADS = 32 * S;
+
+// Shared memory of a block: 2S spectra, the tansig table, the per-stream
+// blocks, then S periods, 16 weight offsets and 8 codes.
+constexpr size_t SMEM_BYTES =
+    (size_t)(2 * S * PACKED + TAB + S * PS) * sizeof(float) + (S + 16 + 8) * sizeof(int);
 
 // Element q of stream b's input history after frame t's shift.
 __device__ __forceinline__ float hist(const Args& a, int b, int t, int q) {
@@ -159,13 +187,12 @@ __device__ float band_sum(const float* u, const float* v, const Args& a, int ban
   return acc;
 }
 
-// Band values interpolated to one bin (lib.rs:84-97).
-__device__ float interp_at(const Args& a, const float* v, int bin) {
-  const float* r = a.interp + bin * NB;
-  float acc = 0.f;
-#pragma unroll
-  for (int b = 0; b < NB; ++b) acc = fmaf(__ldg(r + b), v[b], acc);
-  return acc;
+// Band values interpolated to one bin (lib.rs:84-97): the bin's two
+// nonzero weights, in the band order of the dense dot.
+__device__ __forceinline__ float interp_at(const Args& a, const float* v, int bin) {
+  const float2 w = __ldg(reinterpret_cast<const float2*>(a.iw) + bin);
+  const int b = __ldg(a.ib + bin);
+  return fmaf(w.y, v[b + 1], __fmul_rn(w.x, v[b]));
 }
 
 // ops/pitch.py::remove_doubling_from_candidates: the sequential k = 2..15
@@ -211,20 +238,22 @@ __device__ void remove_doubling(const float* cand, int last_period, float last_g
 template <int SKIP>
 __global__ void __launch_bounds__(THREADS, 2) frame_kernel(const Args a) {
   using namespace frame;
-  // DFT operand rows: the lag-0 windows unless SK_LAG0, the pitch-lag
+  using Cell = rnn_cell::Layout<S, THREADS, PS, P_GS, P_GIN>;
+  // forward FFT rows: the lag-0 windows unless SK_LAG0, the pitch-lag
   // windows unless SK_DFT
   constexpr bool LAG0_ROWS = !(SKIP & SK_LAG0);
   constexpr bool PITCH_ROWS = !(SKIP & SK_DFT);
   constexpr int NR = (LAG0_ROWS ? S : 0) + (PITCH_ROWS ? S : 0);
   extern __shared__ float4 smem4[];
-  float* U = reinterpret_cast<float*>(smem4);  // (16, 962) DFT operand / spectra
-  float* tab = U + U_FLOATS;
+  float* U = reinterpret_cast<float*>(smem4);  // (2S, 962) spectra
+  float* tab = U + 2 * S * PACKED;
   float* ps = tab + TAB;
   int* iper = reinterpret_cast<int*>(ps + S * PS);
   int* woff = iper + S;
   int* acts = woff + 16;
 
   const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
   const int b0 = blockIdx.x * S;
   const int n_valid = min(S, a.B - b0);
 
@@ -252,8 +281,8 @@ __global__ void __launch_bounds__(THREADS, 2) frame_kernel(const Args a) {
   __syncthreads();
 
   const int8_t* W = a.w;
-  const float* X = U;               // lag-0 spectra, rows 0..7
-  float* P = U + S * PACKED;        // pitch-lag spectra, rows 8..15
+  const float* X = U;          // lag-0 spectra, rows 0..S-1
+  float* P = U + S * PACKED;   // pitch-lag spectra, rows S..2S-1
 
   for (int t = 0; t < a.T; ++t) {
     const size_t row0 = (size_t)t * a.B + b0;  // (t, b0) row of cand/packed
@@ -279,54 +308,21 @@ __global__ void __launch_bounds__(THREADS, 2) frame_kernel(const Args a) {
     }
     __syncthreads();
 
-    // ---- the 16 windows as the (960, 16) operand: rows 0..7 the lag-0
-    //      window mem[768 + k], rows 8..15 the pitch window mem[768 - period + k]
-    //      (NR = 8 rows when a skipped stage drops one of the two)
-    for (int idx = tid; idx < NR * WIN; idx += THREADS) {
-      const int r = idx / WIN, k = idx % WIN, s = r % S;
-      float v = 0.f;
-      if (s < n_valid) v = hist(a, b0 + s, t, LAG0_ROWS && r < S ? OFF + k : OFF - iper[s] + k);
-      U[k * NR + r] = v;
-    }
-    __syncthreads();
-
-    // ---- forward DFTs: (16, 960) x F (960, 962) ---------------------------
-    {
-      float acc[4][NR];
-      int col[4];
+    // ---- forward FFTs: warp w takes windows w and w + S of the NR; window r
+    //      fills spectrum row r (r < S: the lag-0 window mem[768 + k] of
+    //      stream r; r >= S: the pitch window mem[768 - period + k] of stream
+    //      r - S), or pitch row S + r when the lag-0 rows are stubbed out
+    for (int r = warp; r < NR; r += S) {
+      const int row = LAG0_ROWS ? r : S + r;
+      const int s = row % S;
+      const int q0 = row < S ? OFF : OFF - iper[s];
+      Cx v[fft960::N1];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        col[j] = min(tid + j * THREADS, PACKED - 1);
-#pragma unroll
-        for (int r = 0; r < NR; ++r) acc[j][r] = 0.f;
+      for (int n1 = 0; n1 < fft960::N1; ++n1) {
+        const int q = q0 + 64 * n1 + 2 * lane;
+        v[n1] = s < n_valid ? Cx{hist(a, b0 + s, t, q), hist(a, b0 + s, t, q + 1)} : Cx{0.f, 0.f};
       }
-      for (int k = 0; k < WIN; ++k) {
-        const float4* ak = reinterpret_cast<const float4*>(U + k * NR);
-        float av[NR];
-#pragma unroll
-        for (int q = 0; q < NR / 4; ++q) {
-          const float4 v = ak[q];
-          av[4 * q] = v.x;
-          av[4 * q + 1] = v.y;
-          av[4 * q + 2] = v.z;
-          av[4 * q + 3] = v.w;
-        }
-        const float* fk = a.F + (size_t)k * PACKED;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float f = __ldg(fk + col[j]);
-#pragma unroll
-          for (int r = 0; r < NR; ++r) acc[j][r] = fmaf(av[r], f, acc[j][r]);
-        }
-      }
-      __syncthreads();
-      // operand row r is spectrum row r, or pitch-lag row S + r without lag-0 rows
-      constexpr int ROW0 = LAG0_ROWS ? 0 : S;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (tid + j * THREADS < PACKED)
-#pragma unroll
-          for (int r = 0; r < NR; ++r) U[(ROW0 + r) * PACKED + col[j]] = acc[j][r];
+      fft960::forward(v, a.tw, U + row * PACKED);
     }
     __syncthreads();
     if constexpr (SKIP & SK_LAG0) {  // x = [filt, filt, filt[:2]] of this frame
@@ -556,45 +552,26 @@ __global__ void __launch_bounds__(THREADS, 2) frame_kernel(const Args a) {
       __syncthreads();
       continue;
     }
-    // the (962, 8) inverse operand, over the lag-0 spectra
-    for (int idx = tid; idx < S * PACKED; idx += THREADS) {
-      const int j = idx / S, s = idx % S;
-      U[idx] = P[s * PACKED + j];
-    }
-    __syncthreads();
-
-    // ---- inverse DFT (8, 962) x IV (962, 960) and overlap-add --------------
-    {
-      // each thread owns output samples c and c + 480 (head and tail) for
-      // c in {tid, tid + 256}, so it alone reads and rewrites synth[c]
-      float acc[4][S];
-      int col[2];
+    // ---- inverse FFTs and overlap-add: warp s takes stream s; the head
+    //      (samples < 480) adds the synthesis memory, then the tail replaces it
+    if (warp < n_valid) {
+      Cx v[fft960::N1];
+      fft960::inverse(P + warp * PACKED, a.tw, v);
+      float* so = a.synth_o + (size_t)(b0 + warp) * FRAME;
+      float* out = a.packed + (row0 + warp) * OUT_LANES;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        col[j] = min(tid + j * THREADS, FRAME - 1);
-#pragma unroll
-        for (int s = 0; s < S; ++s) acc[j][s] = acc[j + 2][s] = 0.f;
-      }
-      for (int k = 0; k < PACKED; ++k) {
-        const float4* xk = reinterpret_cast<const float4*>(U + k * S);
-        const float4 lo = xk[0], hi = xk[1];
-        const float xv[S] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-        const float* iv = a.IV + (size_t)k * WIN;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float f = __ldg(iv + col[j & 1] + (j >> 1) * FRAME);
-#pragma unroll
-          for (int s = 0; s < S; ++s) acc[j][s] = fmaf(xv[s], f, acc[j][s]);
+      for (int n1 = 0; n1 < 8; ++n1) {
+        const int n = 64 * n1 + 2 * lane;
+        if (n < FRAME) {
+          const float2 m = *reinterpret_cast<const float2*>(so + n);
+          *reinterpret_cast<float2*>(out + n) = make_float2(__fadd_rn(v[n1].r, m.x), __fadd_rn(v[n1].i, m.y));
         }
       }
+      __syncwarp();
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if (tid + j * THREADS >= FRAME) continue;
-        for (int s = 0; s < n_valid; ++s) {
-          float* so = a.synth_o + (size_t)(b0 + s) * FRAME + col[j];
-          a.packed[(row0 + s) * OUT_LANES + col[j]] = __fadd_rn(acc[j][s], *so);
-          *so = acc[j + 2][s];
-        }
+      for (int n1 = 7; n1 < fft960::N1; ++n1) {
+        const int n = 64 * n1 + 2 * lane;
+        if (n >= FRAME) *reinterpret_cast<float2*>(so + n - FRAME) = make_float2(v[n1].r, v[n1].i);
       }
     }
     __syncthreads();
@@ -620,8 +597,8 @@ __global__ void __launch_bounds__(THREADS, 2) frame_kernel(const Args a) {
 
 template <int SKIP>
 int launch(const Args& a, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(frame_kernel<SKIP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+  cudaError_t err = cudaFuncSetAttribute(frame_kernel<SKIP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   frame_kernel<SKIP><<<(a.B + S - 1) / S, THREADS, SMEM_BYTES, stream>>>(a);
   return static_cast<int>(cudaGetLastError());

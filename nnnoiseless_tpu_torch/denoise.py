@@ -15,8 +15,10 @@ their wrappers.
   native C++ engine with ``engine="native"``.
 
 Audio convention: f32 samples in the i16 range, 48 kHz mono per stream.
-Every entry point takes the device as an argument; on a CUDA device the
-kernels run, on the CPU their plain versions.
+Every entry point takes the device as an argument, ``"cuda"`` by default:
+on a CUDA device the kernels run, and ``device="cpu"`` runs their plain
+versions.  Without a card a CUDA device raises (:func:`check_device`); it
+never falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -41,6 +43,17 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
+def check_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without a card raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} needs a CUDA card and none is available; "
+            'pass device="cpu" to run the plain versions on the CPU'
+        )
+    return device
+
+
 class Engine:
     """A model's module state on one device, the engine that serves it, and
     the kernels' packed int8 weights (built once).
@@ -53,7 +66,7 @@ class Engine:
 
     def __init__(self, model: RnnModel, device, fused: bool = flags.FUSED):
         self.model = model
-        self.device = torch.device(device)
+        self.device = check_device(device)
         self.rnn = Rnn.from_params(model.params, model.meta, self.device)
         standard = self.rnn.standard_topology()
         self.two_phase = fused and standard
@@ -152,7 +165,7 @@ class DenoiseState:
 
     FRAME_SIZE = FRAME_SIZE
 
-    def __init__(self, model=None, device="cpu", engine: str = "torch"):
+    def __init__(self, model=None, device="cuda", engine: str = "torch"):
         if engine not in ("torch", "native"):
             raise ValueError(f"engine must be 'torch' or 'native', got {engine!r}")
         self.backend = engine
@@ -172,11 +185,11 @@ class DenoiseState:
     # Constructor aliases mirroring the reference's new/from_model/with_model
     # (ownership distinctions do not exist in Python; all share the model).
     @classmethod
-    def new(cls, device="cpu", engine: str = "torch") -> "DenoiseState":
+    def new(cls, device="cuda", engine: str = "torch") -> "DenoiseState":
         return cls(None, device, engine)
 
     @classmethod
-    def from_model(cls, model, device="cpu", engine: str = "torch") -> "DenoiseState":
+    def from_model(cls, model, device="cuda", engine: str = "torch") -> "DenoiseState":
         return cls(model, device, engine)
 
     with_model = from_model
@@ -216,7 +229,7 @@ class StreamBatch:
     >>> out, vad = batch.process(frames)        # frames: (1024, T, 480)
     """
 
-    def __init__(self, batch: int, model=None, device="cpu"):
+    def __init__(self, batch: int, model=None, device="cuda"):
         self.engine = _engine(model, device)
         self.batch = batch
         self.reset()
@@ -244,7 +257,7 @@ def denoise_audio(
     model: Optional[RnnModel] = None,
     drop_first_frame: bool = True,
     chunk_frames: int = 1000,
-    device="cpu",
+    device="cuda",
 ) -> np.ndarray:
     """Denoise a full mono signal (n,) or batch (B, n).
 

@@ -25,6 +25,9 @@ runs :func:`frame_loop_plain` for CPU tensors.  Both return the packed
 gain 482, zeros after) and the new carry arrays.  ``skip`` stubs out
 stages to attribute the kernel's time (``tools/attrib.py``), as the TPU
 kernel's knob does (``frame_kernel.py:596-756`` there); see SKIP_STAGES.
+The kernel computes its three transforms as FFTs inside the block
+(``ops/fft.py``, ``csrc/fft960.cuh``); the plain version keeps the dense
+bases.
 
 Kernel K4 replaces ``candidates_pallas`` there: the 105 candidate lanes
 of ``ops/pitch.py::doubling_candidates`` from precomputed tables, with the
@@ -47,7 +50,7 @@ from ..pipeline import (
 from ..constants import CEPS_MEM, FRAME_SIZE, NB_BANDS, PITCH_BUF_SIZE, PITCH_MAX_DS, WINDOW_SIZE
 from ..tables import BAND_CORR_MATRIX, BAND_INTERP_MATRIX, DCT_TABLE, TANSIG_TABLE
 from .bands import band_energies, interp_band_gain
-from .fft import dft_bases
+from .fft import dft_bases, fft960_table_on
 from .pitch import N_CAND, N_LAGS, candidate_lanes, remove_doubling_from_candidates
 from .rnn import Rnn, RnnState
 from .rnn_kernel import pack_weights
@@ -158,19 +161,31 @@ def frame_loop_plain(rnn: Rnn, carry: tuple, filt: torch.Tensor, cand: torch.Ten
     return packed, (mem, synth, cmem, hv, hn, hd, lastg, period, pgain)
 
 
+def interp_pairs() -> tuple[np.ndarray, np.ndarray]:
+    """BAND_INTERP_MATRIX as each bin's two weights and first band: (481,
+    2) f32 ``w`` and (481,) int32 ``band`` with ``row = w[0] e_band +
+    w[1] e_(band+1)``; bins above the last band have zero weights."""
+    m = BAND_INTERP_MATRIX
+    nz = m != 0
+    band = np.where(nz.any(1), nz.argmax(1), 0)
+    rows = np.arange(m.shape[0])
+    w = np.stack([m[rows, band], m[rows, band + 1]], axis=1)
+    return w.astype(np.float32), band.astype(np.int32)
+
+
 @functools.lru_cache(maxsize=8)
 def _tables(device: torch.device):
-    """The kernel's constant operands on ``device``: F, IV, the band
-    matrix with each band's [first, last) nonzero bin, the interpolation
-    matrix, the DCT and the tansig table."""
-    fwd, inv = dft_bases(device)
+    """The kernel's constant operands on ``device``: the FFT table, the
+    band matrix with each band's [first, last) nonzero bin, the
+    interpolation pairs, the DCT and the tansig table."""
     nz = BAND_CORR_MATRIX != 0
     ranges = np.stack(
         [nz.argmax(1), BAND_CORR_MATRIX.shape[1] - nz[:, ::-1].argmax(1)], axis=1
     ).astype(np.int32)
     t = lambda m: torch.as_tensor(np.ascontiguousarray(m), device=device)
+    iw, ib = interp_pairs()
     return (
-        fwd, inv, t(BAND_CORR_MATRIX), t(ranges), t(BAND_INTERP_MATRIX),
+        fft960_table_on(device), t(BAND_CORR_MATRIX), t(ranges), t(iw), t(ib),
         t(DCT_TABLE), t(TANSIG_TABLE),
     )
 

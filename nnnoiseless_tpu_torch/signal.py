@@ -66,7 +66,7 @@ class DenoiseSignal:
         channels: Optional[int] = None,
         latency_frames: int = 50,
         engine: str = "torch",
-        device="cpu",
+        device="cuda",
     ):
         if latency_frames < 1:
             raise ValueError("latency_frames must be >= 1")

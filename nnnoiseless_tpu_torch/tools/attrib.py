@@ -33,7 +33,7 @@ import torch
 
 from ..chunk import decimate, precompute_chunk
 from ..constants import FRAME_SIZE, PITCH_BUF_SIZE, PITCH_FRAME_DS, PITCH_MAX_DS, PITCH_MAX_PERIOD
-from ..denoise import Engine, denoise_audio, init_batch_carry, process_chunk
+from ..denoise import Engine, check_device, denoise_audio, init_batch_carry, process_chunk
 from ..model import RnnModel
 from ..ops import frame_kernel as fk
 from ..ops.biquad import biquad_filter_frames
@@ -225,9 +225,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--reps", type=int, default=3, help="timed runs per measurement")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device is available")
+    device = check_device(args.device)
     batches = [int(v) for v in args.batches.split(",")]
     t = args.frames
     time_ms = make_timer(device, args.reps)

@@ -22,15 +22,17 @@ import torch
 
 from ..chunk import precompute_chunk
 from ..constants import FRAME_SIZE, PITCH_BUF_SIZE
+from ..denoise import check_device
 from ..ops.pitch import remove_doubling_from_candidates
 
 
-def pitch_trace(signal: np.ndarray, device="cpu") -> tuple[np.ndarray, np.ndarray]:
+def pitch_trace(signal: np.ndarray, device="cuda") -> tuple[np.ndarray, np.ndarray]:
     """Per-frame (period, gain) of the production pitch path from a fresh
-    state, on ``device``.
+    state, on ``device`` (a CUDA device without a card raises).
 
     ``signal`` is mono f32 in the i16 range; trailing samples beyond a whole
     frame are dropped.  Returns (periods (T,) int32, gains (T,) f32)."""
+    device = check_device(device)
     signal = np.asarray(signal, np.float32)
     t = len(signal) // FRAME_SIZE
     frames = torch.as_tensor(signal[: t * FRAME_SIZE].reshape(1, t, FRAME_SIZE), device=device)

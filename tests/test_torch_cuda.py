@@ -8,7 +8,8 @@ a card (and without JAX) run::
 Bars: those of chip_smoke.py (pitch decisions may flip on near-ties, the
 sums run in another order than cuDNN's; waveforms as tests/conftest.py's
 accelerator bars; the RNN cell within 2e-5, the window bit-exact; the
-candidate lanes' lags exact and their values within 1e-5 relative).
+candidate lanes' lags exact and their values within 1e-5 relative; K2's
+FFT probe within 1e-5 of the row scale of float64 torch.fft).
 """
 
 import numpy as np
@@ -17,6 +18,7 @@ import torch
 
 import nnnoiseless_tpu_torch as nt
 from nnnoiseless_tpu_torch.chunk import decimate, precompute_chunk
+from nnnoiseless_tpu_torch.ops import fft
 from nnnoiseless_tpu_torch.ops import frame_kernel as fk
 from nnnoiseless_tpu_torch.ops import pitch_kernel as pk
 from nnnoiseless_tpu_torch.ops import rnn_kernel as rk
@@ -228,3 +230,27 @@ def test_frame_kernel_skip_matches_plain(device, engine, stage):
     other = "rd" if stage == "inv" else "inv"
     with pytest.raises(ValueError):  # the kernel stubs one stage at a time
         fk.frame_loop(engine.rnn, ca, pre.filtered, pre.cand, engine.weights, skip=(stage, other))
+
+
+def test_fft_probe_matches_float64(device):
+    """K2's FFT alone: forward on seeded i16-scale windows and inverse on
+    their spectra, each within 1e-5 of the row scale of torch.fft in
+    float64, the im of bins 0 and 480 read as 0."""
+    rng = np.random.RandomState(8)
+    x = torch.as_tensor(np.clip(rng.randn(300, 960) * 6000, -32768, 32767).astype(np.float32), device=device)
+    win = torch.as_tensor(fft.VORBIS_WINDOW, dtype=torch.float64, device=device)
+    spec = torch.fft.rfft(x.double() * win, dim=1) * float(fft.WNORM)
+    want = torch.cat([spec.real, spec.imag], 1)
+    fft.launches = 0
+    got = fft.rfft960(x)
+    assert fft.launches == 1
+    assert bool(((got.double() - want).abs() <= 1e-5 * want.abs().amax(1, keepdim=True)).all())
+    packed = want.float()
+    spec = torch.complex(packed[:, :481].double(), packed[:, 481:].double())
+    spec[:, 0].imag.zero_()
+    spec[:, 480].imag.zero_()
+    want_y = torch.fft.irfft(spec, 960, dim=1) * 480.0 * win
+    got_y = fft.irfft960(packed)
+    assert bool(((got_y.double() - want_y).abs() <= 1e-5 * want_y.abs().amax(1, keepdim=True)).all())
+    with pytest.raises(ValueError):
+        fft.rfft960(torch.zeros((2, 1920), device=device)[:, ::2])  # not contiguous

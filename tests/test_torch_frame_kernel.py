@@ -21,6 +21,7 @@ from nnnoiseless_tpu.ops.frame_kernel import run_fused_scan
 from nnnoiseless_tpu_torch.ops import frame_kernel as fk
 from nnnoiseless_tpu_torch.ops.rnn import Rnn
 from nnnoiseless_tpu_torch.pipeline import FramePre, init_carry
+from nnnoiseless_tpu_torch.tables import BAND_INTERP_MATRIX
 
 
 def _frames(testing_raw, b, t):
@@ -128,3 +129,16 @@ def test_skip_matches_pallas(testing_raw, default_model, skip):
     for a, w in zip(c.rnn, c_j.rnn):
         np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=1e-4, rtol=1e-5)
     np.testing.assert_allclose(c.lastg.numpy(), np.asarray(c_j.lastg), atol=1e-4)
+
+
+def test_interp_pairs_rebuild_the_dense_matrix():
+    """K2 interpolates each bin from two table weights: the dense matrix
+    has at most two nonzeros a row, in adjacent bands, so the kernel's
+    fma(w1, v[b + 1], w0 v[b]) takes the dense dot's value."""
+    w, band = fk.interp_pairs()
+    assert w.shape == (481, 2) and band.shape == (481,) and band.max() + 1 < 22
+    dense = np.zeros_like(BAND_INTERP_MATRIX)
+    rows = np.arange(481)
+    dense[rows, band] = w[:, 0]
+    dense[rows, band + 1] += w[:, 1]
+    np.testing.assert_array_equal(dense, BAND_INTERP_MATRIX)

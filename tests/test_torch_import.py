@@ -34,7 +34,7 @@ for fused in (True, False):
     assert out.shape == (5 * 480,) and np.isfinite(out).all()
 out, vad = nt.DenoiseState(device="cpu").process_frame(raw[:480])
 assert out.shape == (480,) and np.isfinite(out).all()
-assert len(list(nt.DenoiseSignal(raw / 32768.0, latency_frames=2))) == 5 * 480
+assert len(list(nt.DenoiseSignal(raw / 32768.0, latency_frames=2, device="cpu"))) == 5 * 480
 assert cli.main(["tests/data/testing.raw", "/dev/null", "--device", "cpu"]) == 0
 counts = (pk.launches, pk.stacked_launches, fk.launches, fk.cand_launches, rk.launches, window.launches)
 assert counts == (0,) * 6, counts

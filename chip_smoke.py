@@ -9,7 +9,11 @@
 5. golden: tests/data/testing.raw broadcast to B=128 through process_frames,
    against tests/data/reference_output.raw;
 6. real size: StreamBatch(4096) on 100-frame chunks, one warm-up and three
-   timed chunks, and each kernel's time beside its plain version's;
+   timed chunks, and each kernel's time beside its plain version's; K1
+   against its plain version on all 409,600 windows of that input, under
+   phase 3's bars but for a pidx step over 2 on at most 0.01% of the
+   windows, each a near-tie of the search (a float64 margin under 1e-4,
+   printed): at this size f32 rounding meets such ties;
 7. K3 (stacked pitch), K5 (RNN cell) and K6 (pitch-lag window) against
    their plain versions at B=4096 and B=1, with both times;
 8. the per-frame path: the golden clip through DenoiseState.process_frame
@@ -40,7 +44,11 @@
    phase-6 shapes, R = 819,200 forward windows (each stream-frame's lag-0
    and pitch-lag windows) and 409,600 inverse rows, and the dense plain
    versions, each against torch.fft in float64 on the card; times beside
-   the dense plain versions and torch.fft.rfft / irfft.
+   the dense plain versions and torch.fft.rfft / irfft;
+16. K1 by stage through its skip knob at B=4096, T=100: skip=() bit-equal
+   to the production launch, then each stub against the plain version's
+   stub on phase 3's input and bars, and its cost, production time minus
+   the stub's (best of 3).
 
 Any failure exits non-zero before the last line.  The last two lines are a
 JSON object with each kernel's launches, error, times and bound, and
@@ -78,12 +86,16 @@ LATENCY_PASSES = 2  # timed passes over the golden clip in phase 8
 CUSTOM_SHAPE = (8, 20)  # (B, T) of phase 10
 K4_SMALL = 100  # rows of phase 11's small shape
 T_LANES = [0] + list(range(4, 18))  # candidate lanes holding lags
+N_DS, DS_STEP = 864, 240  # a decimated pitch window, and its step a frame
 PROBE_CHUNK = 65536  # rows per float64 reference chunk in phase 15
 PROBE_BAR = 1e-5  # of the row scale
+K3_R1_BEFORE = "0.0192-0.0321 ms"  # K3 at R=1 before the register-tiled design, PERF.md section 6
 PEAK_BYTES = 3.35e12  # B/s, H100 SXM HBM3
 PEAK_FLOPS = 67e12  # FP32 on the CUDA cores
 PHASE9_MAX = 64  # K2 against its plain version at full size: max units a stream ...
 PHASE9_OUTLIERS = 0.001  # ... on all but this share of the streams
+NEAR_TIE = 1e-4  # pitch decisions: a float64 margin under which f32 rounding may flip the pick
+NEAR_TIE_SHARE = 1e-4  # ... and the share of windows at full size that may flip by over 2
 
 
 def fft960_flops() -> int:
@@ -186,6 +198,71 @@ def kernel_bounds(b: int, t: int, r4: int, r_fwd: int, r_inv: int, band_nnz: int
         "rfft960": (4 * r_fwd * (960 + 962), fft_flops * r_fwd),
         "irfft960": (4 * r_inv * (962 + 960), fft_flops * r_inv),
     }
+
+
+def pitch_margins(torch, windows):
+    """Float64 margins of the plain pitch search on (n, 864) raw windows,
+    from the plain version's f32 whitened window with every sum in f64:
+    (coarse, fine).  coarse: the relative gap between the 2nd and 3rd
+    coarse ratios xc^2 / max(1 + w, 1) (the top two pick the fine lags);
+    fine: the relative gap between the best fine ratio and the next (a
+    flip to a neighbouring lag moves the pitch index by up to 3 at the
+    search's edge, where no interpolation applies).  inf where no rival
+    qualifies.  A margin near f32 rounding (NEAR_TIE) is a decision that
+    rounding may flip."""
+    from nnnoiseless_tpu_torch.ops.pitch import sliding_dot, whiten, window_energies
+
+    inf = float("inf")
+    y = whiten(windows).double()
+    ratio = lambda xc, w: torch.where(xc > 0, xc * xc / torch.clamp(1.0 + w, min=1.0), -inf)
+    x4, y4 = y[:, 384::2][:, :240], y[:, 0::2][:, :387]
+    r4, i4 = ratio(sliding_dot(x4, y4, 147), window_energies(y4, 240, 147)).sort(dim=-1, descending=True,
+                                                                                  stable=True)
+    coarse = torch.where(torch.isfinite(r4[:, 2]), (r4[:, 1] - r4[:, 2]) / r4[:, 1], inf)
+    lags = torch.arange(294, device=y.device)
+    near = ((lags - 2 * i4[:, :1]).abs() <= 2) | ((lags - 2 * i4[:, 1:2]).abs() <= 2)
+    corr = sliding_dot(y[:, 384:], y, 294)
+    r2 = ratio(torch.where(near, corr.clamp(min=-1.0), 0.0), window_energies(y, 480, 294))
+    r2 = r2.sort(dim=-1, descending=True).values
+    fine = torch.where(torch.isfinite(r2[:, 1]), (r2[:, 0] - r2[:, 1]) / r2[:, 0], inf)
+    return coarse, fine
+
+
+def pitch_bars(torch, kern, plain, lag_lanes: bool = True, windows=None) -> tuple[bool, float, str]:
+    """Phase 3's bars on a pitch kernel's (cand, pidx) against its plain
+    version's: at most 1% of the windows differ in pidx or (``lag_lanes``)
+    the t-lanes, no pidx step over 2, and on the other windows every lane
+    within 5e-3 of its row's scale.  With ``windows`` (flat window indices
+    -> their (n, 864) raw windows) a step over 2 is allowed on at most
+    NEAR_TIE_SHARE of the windows, each a near-tie: a float64 margin of the
+    plain search (pitch_margins) under NEAR_TIE; each is printed.  Returns
+    (ok, max abs error on the matching windows, message with the count of
+    differing windows)."""
+    (ck, pk_), (cp, pp) = kern, plain
+    ck, cp = ck.reshape(-1, ck.shape[-1]), cp.reshape(-1, cp.shape[-1])
+    pk_, pp = pk_.reshape(-1), pp.reshape(-1)
+    differ = pk_ != pp
+    if lag_lanes:
+        differ |= (ck[:, T_LANES] != cp[:, T_LANES]).any(-1)
+    n_diff, worst = int(differ.sum()), int((pk_ - pp).abs().max())
+    same = ~differ
+    rowscale = cp.abs().amax(-1, keepdim=True) + 1.0
+    rel = float(((ck - cp).abs() / rowscale)[same].max()) if bool(same.any()) else 0.0
+    err = float((ck - cp).abs()[same].max()) if bool(same.any()) else 0.0
+    steps_ok = worst <= 2
+    big = torch.nonzero((pk_ - pp).abs() > 2)[:, 0]
+    ties = ""
+    if windows is not None and len(big):
+        coarse, fine = pitch_margins(torch, windows(big))
+        margin = torch.minimum(coarse, fine)
+        steps_ok = len(big) <= NEAR_TIE_SHARE * differ.numel() and bool((margin < NEAR_TIE).all())
+        ties = "".join(f"\n      window {int(w)}: pidx {int(pk_[w])} against {int(pp[w])}; float64 "
+                       f"margins coarse {float(c):.3g}, fine {float(f):.3g}"
+                       for w, c, f in zip(big, coarse, fine))
+    ok = n_diff <= 0.01 * differ.numel() and steps_ok and rel < 5e-3
+    return ok, err, (f"{n_diff} of {differ.numel()} windows differ in pidx/t-lanes (largest pidx "
+                     f"step {worst}, {len(big)} over 2); matching windows: max abs {err:.3g}, "
+                     f"row-scale {rel:.3g}{ties}")
 
 
 def golden_worst(out: np.ndarray, ref: np.ndarray) -> tuple[float, float]:
@@ -341,24 +418,10 @@ def main() -> int:
     filtered, _ = biquad_filter_frames(frames, carry.feat.hp_mem, tuple(BIQUAD_HP_A), tuple(BIQUAD_HP_B))
     full = torch.cat([carry.feat.input_mem, filtered.reshape(b3, -1)], 1)
     ds, w0 = decimate(full, t3)
-    cand_k, pidx_k = pk.pitch_analysis_cuda(ds, w0, t3)
-    cand_p, pidx_p = pk.pitch_analysis_plain(ds, w0, t3)
-    torch.cuda.synchronize()
-    t_lanes = [0] + list(range(4, 18))
-    differ = (pidx_k != pidx_p) | (cand_k[..., t_lanes] != cand_p[..., t_lanes]).any(-1)
-    n_diff = int(differ.sum())
-    worst = int((pidx_k - pidx_p).abs().max())
-    same = ~differ
-    rowscale = cand_p.abs().amax(-1, keepdim=True) + 1.0
-    k1_rel = float(((cand_k - cand_p).abs() / rowscale)[same].max())
-    k1_err = float((cand_k - cand_p).abs()[same].max())
-    print(f"[3] K1 B={b3} T={t3}: {n_diff} of {differ.numel()} windows differ in pidx/t-lanes "
-          f"(largest pidx step {worst}); matching windows: max abs {k1_err:.3g}, "
-          f"row-scale {k1_rel:.3g}")
-    if n_diff > 0.01 * differ.numel() or worst > 2:
-        raise RuntimeError("K1 decisions disagree with the plain version")
-    if k1_rel >= 5e-3:
-        raise RuntimeError("K1 float lanes disagree with the plain version")
+    ok, _, msg = pitch_bars(torch, pk.pitch_analysis_cuda(ds, w0, t3), pk.pitch_analysis_plain(ds, w0, t3))
+    print(f"[3] K1 B={b3} T={t3}: {msg}")
+    if not ok:
+        raise RuntimeError("K1 disagrees with the plain version")
 
     # ---- 4. K2 against its plain version --------------------------------------
     b4 = K2_BATCH
@@ -442,6 +505,18 @@ def main() -> int:
         print(f"[6] {name} at B={b6} T={t6}: kernel {times[name][0]:.2f} ms, "
               f"plain {times[name][1]:.2f} ms ({card})")
 
+    def k1_windows(idx):
+        """Raw windows of flat (t, b) indices of the phase-6 input."""
+        t, b = idx // b6, idx % b6
+        w = ds6[b[:, None], DS_STEP * (t + 1)[:, None] + torch.arange(N_DS, device=dev)]
+        w[:, 0] = w06[t, b]
+        return w
+
+    ok, k1_err, msg = pitch_bars(torch, k1_kern(), k1_plain(), windows=k1_windows)
+    print(f"[6] K1 against its plain version at B={b6} T={t6}: {msg}")
+    if not ok:
+        raise RuntimeError("K1 disagrees with its plain version at the main path's shape")
+
     # ---- 7. K3, K5 and K6 against their plain versions ---------------------------
     # K3 windows: each stream's decimated input history at frame 50 of the
     # phase-6 input (full[:, 480 (t + 1):][:1728]), as the per-frame path
@@ -459,17 +534,7 @@ def main() -> int:
     lag7[:2] = torch.tensor([0, 768], dtype=torch.int32)
 
     def k3_check(kern, plain):
-        (ck, pk_), (cp, pp) = kern, plain
-        t_lanes = [0] + list(range(4, 18))
-        differ = (pk_ != pp) | (ck[:, t_lanes] != cp[:, t_lanes]).any(-1)
-        n_diff, worst = int(differ.sum()), int((pk_ - pp).abs().max())
-        rowscale = cp.abs().amax(-1, keepdim=True) + 1.0
-        same = ~differ
-        rel = float(((ck - cp).abs() / rowscale)[same].max()) if bool(same.any()) else 0.0
-        err = float((ck - cp).abs()[same].max()) if bool(same.any()) else 0.0
-        ok = n_diff <= 0.01 * differ.numel() and worst <= 2 and rel < 5e-3
-        return ok, err, f"{n_diff} of {differ.numel()} windows differ (largest pidx step {worst}), " \
-                        f"matching: max abs {err:.3g}, row-scale {rel:.3g}"
+        return pitch_bars(torch, kern, plain)
 
     def k5_check(kern, plain):
         st, gains, vad = plain
@@ -504,7 +569,8 @@ def main() -> int:
             p_ms = cuda_ms(torch, plain, reps)
             k_ms = cuda_ms(torch, kern, reps)
             results7[name, b] = (err, k_ms, p_ms)
-            print(f"[7] {name} B={b}: {msg}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms ({card})")
+            before = f" (direct-sum kernel: {K3_R1_BEFORE})" if (name, b) == ("K3", 1) else ""
+            print(f"[7] {name} B={b}: {msg}; kernel {k_ms:.4f} ms{before}, plain {p_ms:.4f} ms ({card})")
             if not ok:
                 raise RuntimeError(f"{name} disagrees with its plain version at B={b}")
 
@@ -767,6 +833,29 @@ def main() -> int:
         raise RuntimeError("K6 and torch.gather disagree")
     k6_lib = cuda_ms(torch, lambda: mem7.gather(1, gidx), 20)
     print(f"[15] K6 yardstick torch.gather B={b6}: {k6_lib:.4f} ms ({card})")
+
+    # ---- 16. K1 by stage through its skip knob ---------------------------------------------
+    prod16 = k1_kern()
+    if not all(torch.equal(a, b) for a, b in zip(prod16, pk.pitch_analysis_cuda(ds6, w06, t6, skip=()))):
+        raise RuntimeError("K1 with skip=() is not bit-equal to the production launch")
+    del prod16
+    best_ms = attrib.make_timer(dev, 3)
+    base16 = [best_ms(k1_kern)]
+    cost16 = {}
+    for stage in pk.SKIP_STAGES:
+        kern16 = lambda: pk.pitch_analysis_cuda(ds6, w06, t6, skip=(stage,))
+        ok, _, msg = pitch_bars(torch, pk.pitch_analysis_cuda(ds, w0, t3, skip=(stage,)),
+                                pk.pitch_analysis_plain(ds, w0, t3, skip=(stage,)), lag_lanes=stage != "cand")
+        ms = best_ms(kern16)
+        cost16[stage] = base16[0] - ms
+        print(f"[16] K1 skip={stage}: {ms:.3f} ms, cost {base16[0] - ms:+.3f} ms; against the plain "
+              f"stub at B={b3} T={t3}: {msg}")
+        if not ok:
+            raise RuntimeError(f"K1's {stage} stub disagrees with the plain version's")
+    base16.append(best_ms(k1_kern))
+    print(f"[16] K1 stage costs at B={b6} T={t6} (production {base16[0]:.3f} ms, {base16[1]:.3f} ms "
+          f"after the stubs; skip=() bit-equal): "
+          + ", ".join(f"{k} {c:+.3f} ms" for k, c in cost16.items()) + f" ({card})")
 
     band_nnz = int((BAND_CORR_MATRIX != 0).sum())
     bounds = kernel_bounds(b6, t6, b6 * t6, 2 * b6 * t6, b6 * t6, band_nnz)

@@ -35,6 +35,8 @@ I = ctypes.c_int
 _SIGNATURES = {
     # ds, ds_stride, w0, cand, pidx, batch, t_count, stream
     "nnt_pitch_analysis": (P, I, P, P, P, I, I, P),
+    # the same, then the skipped-stage mask, stream
+    "nnt_pitch_analysis_skip": (P, I, P, P, P, I, I, I, P),
     # tables: FFT, band corr, band ranges, interp weights, interp bands,
     # dct, tansig; weights: int8 buffer, offsets (int32), acts (int32);
     # carries in: mem, synth, cmem, hv, hn, hd, lastg, period, pgain;

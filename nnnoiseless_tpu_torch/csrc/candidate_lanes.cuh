@@ -16,6 +16,7 @@ namespace candidate_lanes {
 
 constexpr int MAXP = 384;
 constexpr int N_CAND = 105;
+constexpr int N_WALK = 15;  // candidates: t0, then t1 of k = 2..15
 
 __constant__ int SECOND_CHECK[16] = {0, 0, 3, 2, 3, 2, 5, 2, 3, 2, 3, 2, 5, 2, 3, 2};
 
@@ -28,17 +29,23 @@ __device__ __forceinline__ int idiv(int a, int b) {
   return a / b;
 }
 
+// The lanes of candidate c < N_WALK: c = 0 is t0 (lanes 0-3), c >= 1 the
+// t1 of k = c + 1 (lanes 4, 18, 32, 46 + c - 1); then the candidate's
+// three correlation lanes 60, 75, 90 + c.  Candidates are independent, so
+// one thread may walk all of them or 15 threads one each.
 template <bool FLOOR, class CorrAt, class YyAt>
-__device__ __forceinline__ void write(int t0, float xx, CorrAt corr_at, YyAt yy_at, float* out) {
+__device__ __forceinline__ void write_one(int c, int t0, float xx, CorrAt corr_at, YyAt yy_at,
+                                          float* out) {
   auto gain = [&](float xy, float yy) { return xy / sqrtf(__fadd_rn(1.f, __fmul_rn(xx, yy))); };
-  const float xy0 = corr_at(t0), yy0 = yy_at(t0);
-  out[0] = (float)t0;
-  out[1] = gain(xy0, yy0);
-  out[2] = xy0;
-  out[3] = yy0;
-  int cands[15];
-  cands[0] = t0;
-  for (int k = 2; k < 16; ++k) {
+  int cand = t0;
+  if (c == 0) {
+    const float xy0 = corr_at(t0), yy0 = yy_at(t0);
+    out[0] = (float)t0;
+    out[1] = gain(xy0, yy0);
+    out[2] = xy0;
+    out[3] = yy0;
+  } else {
+    const int k = c + 1;
     const int t1 = idiv<FLOOR>(2 * t0 + k, 2 * k);
     const int t1b = k == 2 ? (t1 + t0 > MAXP ? t0 : t0 + t1)
                            : idiv<FLOOR>(2 * SECOND_CHECK[k] * t0 + k, 2 * k);
@@ -48,13 +55,16 @@ __device__ __forceinline__ void write(int t0, float xx, CorrAt corr_at, YyAt yy_
     out[18 + k - 2] = xy;
     out[32 + k - 2] = yy;
     out[46 + k - 2] = gain(xy, yy);
-    cands[k - 1] = t1;
+    cand = t1;
   }
-  for (int c = 0; c < 15; ++c) {
-    out[60 + c] = corr_at(cands[c] - 1);
-    out[75 + c] = corr_at(cands[c]);
-    out[90 + c] = corr_at(cands[c] + 1);
-  }
+  out[60 + c] = corr_at(cand - 1);
+  out[75 + c] = corr_at(cand);
+  out[90 + c] = corr_at(cand + 1);
+}
+
+template <bool FLOOR, class CorrAt, class YyAt>
+__device__ __forceinline__ void write(int t0, float xx, CorrAt corr_at, YyAt yy_at, float* out) {
+  for (int c = 0; c < N_WALK; ++c) write_one<FLOOR>(c, t0, xx, corr_at, yy_at, out);
 }
 
 }  // namespace candidate_lanes

@@ -5,8 +5,10 @@ The plain PyTorch form of ``nnnoiseless_tpu/ops/pitch.py`` (re-deriving the
 reference src/pitch.rs:63-221, 448-483).  Every function broadcasts over
 leading axes, so a (T, B, 864) window stack is processed in one call.  The
 385-lag correlation and the window-energy tables are direct f32 sums
-(1-D convolutions), the same sums the pitch kernel (csrc/pitch_kernel.cu)
-computes.
+(1-D convolutions).  The pitch kernel (csrc/pitch_kernel.cuh) takes the
+correlation as direct f32 sums in another order and the energies as
+differences of f64 prefix sums, so the two agree to rounding, and a
+decision may flip only at a near-tie.
 """
 
 from __future__ import annotations
@@ -157,17 +159,23 @@ def find_best_pitch(xcorr: torch.Tensor, energies: torch.Tensor):
     return best, second
 
 
-def pitch_search(y: torch.Tensor, corr: torch.Tensor, energies: torch.Tensor):
+def pitch_search(y: torch.Tensor, corr: torch.Tensor, energies: torch.Tensor,
+                 coarse: bool = True):
     """Coarse/fine search on whitened (..., 864) windows (pitch.rs:63-115).
 
     ``corr`` / ``energies``: the shared (..., 385) correlation
     dot(y[384:864], y[s:s+480]) and forward window-energy tables.  Returns
-    ``2*best - offset`` (int64), so the pitch index is 768 minus it."""
-    x4 = y[..., PITCH_MAX_DS::2][..., :LEN4]  # (..., 240)
-    y4 = y[..., 0::2][..., : LEN4 + N_COARSE]  # (..., 387)
-    xcorr4 = sliding_dot(x4, y4, N_COARSE)
-    w4 = window_energies(y4, LEN4, N_COARSE)
-    best4, second4 = find_best_pitch(xcorr4, w4)
+    ``2*best - offset`` (int64), so the pitch index is 768 minus it.
+    ``coarse=False`` stubs the coarse search (both picks 0), for the pitch
+    kernel's ``skip`` knob."""
+    if coarse:
+        x4 = y[..., PITCH_MAX_DS::2][..., :LEN4]  # (..., 240)
+        y4 = y[..., 0::2][..., : LEN4 + N_COARSE]  # (..., 387)
+        xcorr4 = sliding_dot(x4, y4, N_COARSE)
+        w4 = window_energies(y4, LEN4, N_COARSE)
+        best4, second4 = find_best_pitch(xcorr4, w4)
+    else:
+        best4 = second4 = torch.zeros(y.shape[:-1], dtype=torch.int64, device=y.device)
 
     lags = torch.arange(N_FINE, device=y.device)
     near = ((lags - 2 * best4[..., None]).abs() <= 2) | (
@@ -329,15 +337,23 @@ def remove_doubling_from_candidates(
     return period.to(torch.int32), pg
 
 
-def pitch_chain(windows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def pitch_chain(windows: torch.Tensor, skip: tuple = ()) -> tuple[torch.Tensor, torch.Tensor]:
     """Raw (..., 864) decimated windows -> ((..., 105) candidate lanes,
     (...) int32 pitch index): whiten, the shared 385-lag tables, the
-    search and the candidate lanes."""
-    y = whiten(windows)
-    corr = sliding_dot(y[..., PITCH_MAX_DS:], y, N_LAGS)
-    energies = window_energies(y, PITCH_FRAME_DS, N_LAGS)
-    pidx = PITCH_MAX_PERIOD - pitch_search(y, corr, energies)
-    return doubling_candidates(corr, energies, pidx), pidx.to(torch.int32)
+    search and the candidate lanes.  ``skip`` stubs stages as the pitch
+    kernel's knob does (ops/pitch_kernel.py::SKIP_STAGES): whiten y = x,
+    etab and corr zeros, coarse both picks 0, cand every lane xx."""
+    y = windows if "whiten" in skip else whiten(windows)
+    zeros = lambda: torch.zeros(y.shape[:-1] + (N_LAGS,), dtype=y.dtype, device=y.device)
+    corr = zeros() if "corr" in skip else sliding_dot(y[..., PITCH_MAX_DS:], y, N_LAGS)
+    energies = zeros() if "etab" in skip else window_energies(y, PITCH_FRAME_DS, N_LAGS)
+    pidx = PITCH_MAX_PERIOD - pitch_search(y, corr, energies, coarse="coarse" not in skip)
+    if "cand" in skip:
+        xx = torch.clamp(energies[..., PITCH_MAX_DS], min=0.0)
+        cand = xx[..., None].expand(xx.shape + (N_CAND,)).contiguous()
+    else:
+        cand = doubling_candidates(corr, energies, pidx)
+    return cand, pidx.to(torch.int32)
 
 
 def pitch_process(

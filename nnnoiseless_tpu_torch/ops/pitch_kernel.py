@@ -8,14 +8,22 @@ builds the 385-lag correlation and energy tables, runs the coarse/fine
 search and writes the 105 octave-removal candidate lanes and the pitch
 index.
 
-:func:`pitch_analysis_stream` launches ``csrc/pitch_kernel.cu`` for CUDA
-tensors and runs :func:`pitch_analysis_plain` for CPU tensors.
+:func:`pitch_analysis_stream` launches ``csrc/pitch_kernel.cu`` (the kernel
+in ``csrc/pitch_kernel.cuh``) for CUDA tensors and runs
+:func:`pitch_analysis_plain` for CPU tensors.
 
 K3 replaces ``pitch_analysis_pallas`` there: the same analysis of R windows
 already stacked (R, 864), with no lane patched, one per stream on the
 per-frame path.  :func:`pitch_analysis_stacked` launches it through a
 second entry point of the same source for CUDA tensors and runs
 ``ops/pitch.py::pitch_chain`` for CPU tensors.
+
+K1 has a ``skip`` knob for attribution, as K2 has: ``skip=(stage,)`` stubs
+one stage of SKIP_STAGES, in the kernel (one instance per stage, built in
+``csrc/pitch_kernel_skip.cu``) and in the plain version alike; the stage's
+cost is the production time minus the stub's.  The JAX kernel's
+``corrinv`` stage is not ported: it stubs the inverse DFT of a correlation
+that this kernel never transforms.  Production calls never pass it.
 """
 
 from __future__ import annotations
@@ -34,6 +42,26 @@ DS_STEP = 240  # decimated samples per frame
 launches = 0
 stacked_launches = 0
 
+# Stages the ``skip`` knob stubs out, bit i of the kernel's mask for stage i
+# (the stubs of nnnoiseless_tpu/ops/pitch_kernel.py:554-642):
+#   whiten  whitening: y = x
+#   etab    the 385-lag energy table: zeros
+#   corr    the 385-lag correlation: zeros
+#   coarse  the coarse search: best4 = second4 = 0
+#   cand    the candidate walk: every lane xx = max(etab[384], 0)
+SKIP_STAGES = ("whiten", "etab", "corr", "coarse", "cand")
+
+
+def _skip_mask(skip) -> int:
+    """The kernel's mask for ``skip``: at most one stage of SKIP_STAGES."""
+    skip = tuple(skip)
+    unknown = set(skip) - set(SKIP_STAGES)
+    if unknown:
+        raise ValueError(f"unknown skip stages {sorted(unknown)}; known: {SKIP_STAGES}")
+    if len(skip) > 1:
+        raise ValueError(f"the pitch kernel stubs one stage at a time, got {skip}")
+    return sum(1 << SKIP_STAGES.index(name) for name in skip)
+
 
 def window_stack(ds: torch.Tensor, w0: torch.Tensor, t_count: int) -> torch.Tensor:
     """(T, B, 864) windows of frames 0..T-1 with the lane-0 patch."""
@@ -45,9 +73,11 @@ def window_stack(ds: torch.Tensor, w0: torch.Tensor, t_count: int) -> torch.Tens
     return wins
 
 
-def pitch_analysis_plain(ds: torch.Tensor, w0: torch.Tensor, t_count: int):
-    """The plain PyTorch version: the ops/pitch.py chain on the window stack."""
-    return pitch_chain(window_stack(ds, w0, t_count))
+def pitch_analysis_plain(ds: torch.Tensor, w0: torch.Tensor, t_count: int, skip: tuple = ()):
+    """The plain PyTorch version: the ops/pitch.py chain on the window
+    stack, with the stub of ``skip``."""
+    _skip_mask(skip)
+    return pitch_chain(window_stack(ds, w0, t_count), tuple(skip))
 
 
 def _check(ds, w0, t_count):
@@ -62,10 +92,11 @@ def _check(ds, w0, t_count):
         raise ValueError("ds and w0 must be on one device")
 
 
-def pitch_analysis_cuda(ds: torch.Tensor, w0: torch.Tensor, t_count: int):
+def pitch_analysis_cuda(ds: torch.Tensor, w0: torch.Tensor, t_count: int, skip: tuple = ()):
     """Launch K1 on ds's current CUDA stream; returns (cand (T,B,105),
-    pidx (T,B) int32)."""
+    pidx (T,B) int32).  ``skip``: at most one stage to stub out."""
     global launches
+    mask = _skip_mask(skip)
     _check(ds, w0, t_count)
     if ds.stride(1) != 1 or not w0.is_contiguous():
         raise ValueError("ds rows and w0 must be contiguous")
@@ -75,24 +106,27 @@ def pitch_analysis_cuda(ds: torch.Tensor, w0: torch.Tensor, t_count: int):
     if b and t_count:
         lib = _build.library()
         stream = torch.cuda.current_stream(ds.device).cuda_stream
-        err = lib.nnt_pitch_analysis(
-            ds.data_ptr(), ds.stride(0), w0.data_ptr(), cand.data_ptr(),
-            pidx.data_ptr(), b, t_count, stream,
-        )
+        args = (ds.data_ptr(), ds.stride(0), w0.data_ptr(), cand.data_ptr(), pidx.data_ptr(),
+                b, t_count)
+        if mask:
+            err = lib.nnt_pitch_analysis_skip(*args, mask, stream)
+        else:
+            err = lib.nnt_pitch_analysis(*args, stream)
         _build.check(err, "nnt_pitch_analysis")
         launches += 1
     return cand, pidx
 
 
-def pitch_analysis_stream(ds: torch.Tensor, w0: torch.Tensor, t_count: int):
+def pitch_analysis_stream(ds: torch.Tensor, w0: torch.Tensor, t_count: int, skip: tuple = ()):
     """(B, >= 864 + 240T) decimated signal, (T, B) lane-0 patches ->
-    ((T, B, 105) candidate lanes, (T, B) int32 pitch index)."""
+    ((T, B, 105) candidate lanes, (T, B) int32 pitch index).  ``skip``: at
+    most one stage of SKIP_STAGES to stub out, for attribution only."""
     if ds.is_cuda:
-        return pitch_analysis_cuda(ds, w0, t_count)
+        return pitch_analysis_cuda(ds, w0, t_count, skip)
     if ds.device.type != "cpu":
         raise ValueError(f"unsupported device {ds.device}")
     _check(ds, w0, t_count)
-    return pitch_analysis_plain(ds, w0, t_count)
+    return pitch_analysis_plain(ds, w0, t_count, skip)
 
 
 def _check_stacked(windows):

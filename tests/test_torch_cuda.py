@@ -28,6 +28,8 @@ from nnnoiseless_tpu_torch.ops.rnn import RnnState
 
 pytestmark = pytest.mark.cuda
 
+T_LANES = [0] + list(range(4, 18))  # candidate lanes holding lags
+
 
 @pytest.fixture(scope="module")
 def device():
@@ -62,6 +64,53 @@ def test_pitch_kernel_matches_plain(device):
     assert int((pidx_k - pidx_p).abs().max()) <= 2
     rowscale = cand_p.abs().amax(-1, keepdim=True) + 1.0
     assert float(((cand_k - cand_p).abs() / rowscale)[~differ].max()) < 5e-3
+
+
+def _pitch_inputs(device, b, t, seed):
+    x = torch.as_tensor(_frames(b, t, seed), device=device).reshape(b, -1)
+    return decimate(torch.cat([torch.zeros((b, 1728), device=device), x], 1), t)
+
+
+def _assert_pitch_bars(kern, plain, lag_lanes=True):
+    """chip_smoke.py phase 3's bars: at most 1% of the windows differ in
+    pidx or (``lag_lanes``) the t-lanes, no pidx step over 2, the other
+    windows within 5e-3 of the row scale."""
+    (ck, pk_), (cp, pp) = kern, plain
+    ck, cp, pk_, pp = ck.reshape(-1, 105), cp.reshape(-1, 105), pk_.reshape(-1), pp.reshape(-1)
+    differ = pk_ != pp
+    if lag_lanes:
+        differ |= (ck[:, T_LANES] != cp[:, T_LANES]).any(-1)
+    assert int(differ.sum()) <= differ.numel() // 100
+    assert int((pk_ - pp).abs().max()) <= 2
+    rowscale = cp.abs().amax(-1, keepdim=True) + 1.0
+    assert float(((ck - cp).abs() / rowscale)[~differ].max()) < 5e-3
+
+
+def test_pitch_kernel_fills_the_card(device):
+    """K1 at B=512, T=20: 10,240 blocks over every SM, several rounds."""
+    ds, w0 = _pitch_inputs(device, 512, 20, 9)
+    pk.launches = 0
+    got = pk.pitch_analysis_stream(ds, w0, 20)
+    assert pk.launches == 1
+    _assert_pitch_bars(got, pk.pitch_analysis_plain(ds, w0, 20))
+
+
+def test_pitch_kernel_skip_none_is_production(device):
+    ds, w0 = _pitch_inputs(device, 37, 6, 10)
+    prod = pk.pitch_analysis_cuda(ds, w0, 6)
+    none = pk.pitch_analysis_cuda(ds, w0, 6, skip=())
+    assert all(torch.equal(a, b) for a, b in zip(prod, none))
+
+
+@pytest.mark.parametrize("stage", pk.SKIP_STAGES)
+def test_pitch_kernel_skip_matches_plain(device, stage):
+    """Each stub of K1 launches and meets phase 3's bars against the plain
+    version's stub (with the walk stubbed every lane is xx: no lag lanes)."""
+    ds, w0 = _pitch_inputs(device, 37, 6, 10)
+    pk.launches = 0
+    got = pk.pitch_analysis_stream(ds, w0, 6, skip=(stage,))
+    assert pk.launches == 1
+    _assert_pitch_bars(got, pk.pitch_analysis_plain(ds, w0, 6, skip=(stage,)), lag_lanes=stage != "cand")
 
 
 def test_frame_kernel_matches_plain(device, engine):

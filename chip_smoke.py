@@ -15,7 +15,13 @@
    windows, each a near-tie of the search (a float64 margin under 1e-4,
    printed): at this size f32 rounding meets such ties;
 7. K3 (stacked pitch), K5 (RNN cell) and K6 (pitch-lag window) against
-   their plain versions at B=4096 and B=1, with both times;
+   their plain versions at B=4096 and B=1 (K5 and K6 also at B=1061, a
+   ragged last block of K5's 32-stream tile, 1024 and 64): each kernel's
+   device time (calls replayed from a CUDA graph) cold (each call on its
+   own copy of the inputs, cold_ms: the kernels line's time) and warm
+   (every call on the same inputs), its time a call (launched from
+   Python, host cost included), the earlier designs' times beside them,
+   and the plain version's;
 8. the per-frame path: the golden clip through DenoiseState.process_frame
    (K3, K5, K6 launch; K1, K2 do not), and its per-call latency;
 9. the scan engine at full width: StreamBatch(4096) with fused=False, one
@@ -58,7 +64,8 @@ Bounds: the least time the card could take for a kernel's work on this
 run's shapes, the larger of its bytes (each input read once, each output
 written once) over 3.35 TB/s and its operations over the FP32 peak of
 67 TFLOP/s (H100 SXM, NVIDIA's data sheet, at a 700 W limit).  The counts
-are in kernel_bounds().
+are in kernel_bounds().  A kernel timed below its bound fails the run:
+its data came from the L2, not from memory.
 """
 
 from __future__ import annotations
@@ -89,7 +96,20 @@ T_LANES = [0] + list(range(4, 18))  # candidate lanes holding lags
 N_DS, DS_STEP = 864, 240  # a decimated pitch window, and its step a frame
 PROBE_CHUNK = 65536  # rows per float64 reference chunk in phase 15
 PROBE_BAR = 1e-5  # of the row scale
-K3_R1_BEFORE = "0.0192-0.0321 ms"  # K3 at R=1 before the register-tiled design, PERF.md section 6
+# times before the current designs (PERF.md section 6, NVIDIA H100 80GB HBM3,
+# 700 W): K3 at R=1 before its register tiles, a call; K5 and K6 before
+# theirs on the device, cold and warm as phase 7 times them (kernel_ab.py)
+BEFORE = {("K3", 1): "direct-sum kernel 0.0192-0.0321 ms a call",
+          ("K5", 4096): "scalar-load kernel 0.1224 ms cold, 0.1173 warm",
+          ("K5", 64): "scalar-load kernel 0.1157 ms cold, 0.1156 warm",
+          ("K5", 1): "scalar-load kernel 0.1137 ms cold, 0.1136 warm",
+          ("K6", 4096): "scalar loads, 320 threads a stream: 0.0182 ms cold, 0.0134 warm",
+          ("K6", 64): "scalar loads, 320 threads a stream: 0.0032 ms cold, 0.0018 warm",
+          ("K6", 1): "scalar loads, 320 threads a stream: 0.0017 ms cold, 0.0017 warm"}
+# K5 and K6 also at these batches in phase 7: 1061 ends in a partial block
+# of K5's 32-stream tile, 1024 and 64 run its one-stream tile
+MID_BATCHES = (1061, 1024, 64)
+RNN_WEIGHT_BYTES = 87503  # the standard model's int8 weights (ops/rnn_kernel.py::pack_weights)
 PEAK_BYTES = 3.35e12  # B/s, H100 SXM HBM3
 PEAK_FLOPS = 67e12  # FP32 on the CUDA cores
 PHASE9_MAX = 64  # K2 against its plain version at full size: max units a stream ...
@@ -136,6 +156,42 @@ def cuda_ms(torch, fn, reps: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, reps: int, keep: bool = False) -> float:
+    """Device milliseconds of one call of ``fn``: ``reps`` calls captured
+    in a CUDA graph, replayed once to warm up and once timed with CUDA
+    events, so the host's cost of a call (the wrapper's checks and
+    allocations, the launch) is out of the time.  With ``keep`` every
+    call's output stays allocated until the graph is gone, so each call
+    writes memory of its own."""
+    fn()
+    torch.cuda.synchronize()
+    graph, kept = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            out = fn()
+            if keep:
+                kept.append(out)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph, kept
+    return start.elapsed_time(end) / reps
+
+
+def cold_ms(torch, kern, args: tuple, reps: int) -> float:
+    """graph_ms of ``kern(*args)`` with cold caches: each of the ``reps``
+    calls reads its own copy of ``args`` and writes its own output.  Where
+    the copies and outputs together pass the H100's 50 MB of L2 (B = 4096,
+    1061, 1024 and 64 in phase 7), a call finds none of its data in L2 and
+    moves it from memory, as a bound's bytes assume."""
+    copies = iter([tuple(a.clone() for a in args) for _ in range(reps + 1)])
+    return graph_ms(torch, lambda: kern(*next(copies)), reps, keep=True)
 
 
 def test_frames(batch: int, t_count: int, seed: int) -> np.ndarray:
@@ -193,7 +249,10 @@ def kernel_bounds(b: int, t: int, r4: int, r_fwd: int, r_inv: int, band_nnz: int
         # K4 reads 88 table values a row (2 for t0, 4 for each of 14 k,
         # 2 more for each of 15 candidates), xx and pidx; writes 105 lanes
         "K4": (r4 * (88 * 4 + 8 + 105 * 4), 0.0),
-        "K5": (4 * b * (24 + 48 + 96 + 42 + 24 + 48 + 96 + 22 + 1), 2 * rnn_macs * b),
+        # K5 reads the int8 weights and the tansig table once, besides
+        # the states and features of b streams and their outputs
+        "K5": (RNN_WEIGHT_BYTES + 4 * 201 + 4 * b * (24 + 48 + 96 + 42 + 24 + 48 + 96 + 22 + 1),
+               2 * rnn_macs * b),
         "K6": (b * (4 + 2 * 4 * 960), 0.0),
         "rfft960": (4 * r_fwd * (960 + 962), fft_flops * r_fwd),
         "irfft960": (4 * r_inv * (962 + 960), fft_flops * r_inv),
@@ -545,32 +604,32 @@ def main() -> int:
         err = float((kern - plain).abs().max())
         return bool(torch.equal(kern, plain)), err, f"max abs {err:.3g} (bit-exact required)"
 
-    def k3_pair(b):
-        w = wins[:b]
-        return lambda: pk.pitch_analysis_stacked_cuda(w), lambda: pitch_chain(w)
-
-    def k5_pair(b):
-        hv, hn, hd, f = (a[:b] for a in rnn_in)
-        return (lambda: rk.rnn_step_cuda(engine.weights, hv, hn, hd, f),
-                lambda: engine.rnn(RnnState(hv, hn, hd), f))
-
-    def k6_pair(b):
-        m, l = mem7[:b], lag7[:b]
-        return lambda: wk.window_cuda(m, l), lambda: wk.barrel_shift_window(m, l)
+    # (inputs, kernel, plain version) of each kernel at b streams
+    cases = {
+        "K3": (lambda b: (wins[:b],), pk.pitch_analysis_stacked_cuda, pitch_chain),
+        "K5": (lambda b: tuple(a[:b] for a in rnn_in),
+               lambda *a: rk.rnn_step_cuda(engine.rnn_weights, *a),
+               lambda hv, hn, hd, f: engine.rnn(RnnState(hv, hn, hd), f)),
+        "K6": (lambda b: (mem7[:b], lag7[:b]), wk.window_cuda, wk.barrel_shift_window),
+    }
+    checks = {"K3": k3_check, "K5": k5_check, "K6": k6_check}
 
     results7 = {}
-    for name, pair, check in (("K3", k3_pair, k3_check), ("K5", k5_pair, k5_check),
-                              ("K6", k6_pair, k6_check)):
-        for b in (b6, 1):
-            kern, plain = pair(b)
-            ok, err, msg = check(kern(), plain())
+    for name, (inputs, kern_fn, plain_fn) in cases.items():
+        for b in (b6, 1) if name == "K3" else (b6, *MID_BATCHES, 1):
+            args = inputs(b)
+            kern, plain = (lambda: kern_fn(*args)), (lambda: plain_fn(*args))
+            ok, err, msg = checks[name](kern(), plain())
             torch.cuda.synchronize()
             reps = 20 if b == b6 else 200
             p_ms = cuda_ms(torch, plain, reps)
-            k_ms = cuda_ms(torch, kern, reps)
+            call_ms = cuda_ms(torch, kern, reps)
+            warm_ms = graph_ms(torch, kern, reps)
+            k_ms = cold_ms(torch, kern_fn, args, reps)
             results7[name, b] = (err, k_ms, p_ms)
-            before = f" (direct-sum kernel: {K3_R1_BEFORE})" if (name, b) == ("K3", 1) else ""
-            print(f"[7] {name} B={b}: {msg}; kernel {k_ms:.4f} ms{before}, plain {p_ms:.4f} ms ({card})")
+            before = f" (before: {BEFORE[name, b]})" if (name, b) in BEFORE else ""
+            print(f"[7] {name} B={b}: {msg}; kernel on the device (CUDA graph) {k_ms:.4f} ms cold, "
+                  f"{warm_ms:.4f} ms warm; {call_ms:.4f} ms a call{before}; plain {p_ms:.4f} ms ({card})")
             if not ok:
                 raise RuntimeError(f"{name} disagrees with its plain version at B={b}")
 
@@ -831,8 +890,10 @@ def main() -> int:
     gidx = (768 - lag7.to(torch.int64))[:, None] + torch.arange(960, device=dev)
     if not torch.equal(mem7.gather(1, gidx), wk.window_cuda(mem7, lag7)):
         raise RuntimeError("K6 and torch.gather disagree")
-    k6_lib = cuda_ms(torch, lambda: mem7.gather(1, gidx), 20)
-    print(f"[15] K6 yardstick torch.gather B={b6}: {k6_lib:.4f} ms ({card})")
+    k6_lib = cold_ms(torch, lambda m, i: m.gather(1, i), (mem7, gidx), 20)
+    print(f"[15] K6 yardstick torch.gather B={b6}: on the device (CUDA graph) {k6_lib:.4f} ms cold, "
+          f"{graph_ms(torch, lambda: mem7.gather(1, gidx), 20):.4f} ms warm; "
+          f"{cuda_ms(torch, lambda: mem7.gather(1, gidx), 20):.4f} ms a call ({card})")
 
     # ---- 16. K1 by stage through its skip knob ---------------------------------------------
     prod16 = k1_kern()
@@ -889,6 +950,10 @@ def main() -> int:
     for k in kernels:
         print(f"[15] {k['name']}: {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
               f"({k['bound_ms'] / k['ms']:.1%} of the bound)")
+    beat = [k["name"] for k in kernels if k["ms"] < k["bound_ms"]]
+    if beat:
+        raise RuntimeError(f"{beat} timed below their bound: the timing's data did not come from "
+                           "where the bound's count assumes")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -47,9 +47,9 @@ _SIGNATURES = {
     + (I, I, I, P),
     # windows, cand, pidx, rows, stream
     "nnt_pitch_analysis_stacked": (P, P, P, I, P),
-    # tansig, int8 weights, offsets, acts, weight bytes; f, hv, hn, hd;
+    # tansig, tiled int8 weights, acts, weight bytes; f, hv, hn, hd;
     # out: hv, hn, hd, gains, vad; batch, stream
-    "nnt_rnn_step": (P, P, P, P, I) + (P,) * 4 + (P,) * 5 + (I, P),
+    "nnt_rnn_step": (P, P, P, I) + (P,) * 4 + (P,) * 5 + (I, P),
     # mem, lag, out, batch, stream
     "nnt_window_at_lag": (P, P, P, I, P),
     # corr, yy, xx, pidx, out, rows, stream

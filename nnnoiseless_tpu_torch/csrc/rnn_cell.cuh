@@ -1,5 +1,7 @@
-// The stages of the RNN cell (reference src/rnn.rs:242-379), shared by
-// kernel K2 (frame_kernel.cu) and kernel K5 (rnn_kernel.cu).
+// The stages of the RNN cell (reference src/rnn.rs:242-379) as kernel K2
+// (frame_kernel.cuh) runs them.  Kernel K5 (rnn_kernel.cu) runs its own
+// register-tiled stages (rnn_tile.cuh) and takes only tansig and act
+// from here.
 //
 // Every stage runs over a tile of L::S streams with L::THREADS threads.
 // Stream s keeps its vectors in an L::PS-float block of shared memory,

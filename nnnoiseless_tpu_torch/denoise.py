@@ -34,7 +34,7 @@ from .constants import FRAME_SIZE
 from .model import ModelMeta, RnnModel
 from .ops.frame_kernel import run_frame_loop
 from .ops.rnn import Rnn
-from .ops.rnn_kernel import pack_weights
+from .ops.rnn_kernel import pack_tiled, pack_weights
 from .pipeline import DenoiseCarry, FramePre, frame_step, frame_step_hoisted, init_carry
 
 # Full-f32 products everywhere: the Toeplitz biquad loses up to ~160 i16
@@ -56,7 +56,8 @@ def check_device(device) -> torch.device:
 
 class Engine:
     """A model's module state on one device, the engine that serves it, and
-    the kernels' packed int8 weights (built once).
+    the kernels' packed int8 weights (built once): ``weights`` in K2's
+    layout, ``rnn_weights`` in K5's.
 
     ``two_phase`` (precompute, then kernel K2) when ``fused`` is set and the
     model has the standard topology, the rule of the JAX package's
@@ -70,11 +71,9 @@ class Engine:
         self.rnn = Rnn.from_params(model.params, model.meta, self.device)
         standard = self.rnn.standard_topology()
         self.two_phase = fused and standard
-        self.weights = (
-            pack_weights(self.rnn, self.device)
-            if self.device.type == "cuda" and standard
-            else None
-        )
+        on_card = self.device.type == "cuda" and standard
+        self.weights = pack_weights(self.rnn, self.device) if on_card else None
+        self.rnn_weights = pack_tiled(self.rnn, self.device) if on_card else None
 
 
 def _engine(model, device) -> Engine:
@@ -107,7 +106,7 @@ def scan_chunk(engine: Engine, carry: DenoiseCarry, frames: torch.Tensor,
     outs, vads, periods, gains = [], [], [], []
     for t in range(frames.shape[1]):
         carry, out, vad = frame_step_hoisted(
-            engine.rnn, carry, FramePre(*(f[t] for f in pre)), engine.weights
+            engine.rnn, carry, FramePre(*(f[t] for f in pre)), engine.rnn_weights
         )
         outs.append(out)
         vads.append(vad)
@@ -208,7 +207,7 @@ class DenoiseState:
         if self.backend == "native":
             return self._nstate.process_frame(frame)
         x = torch.as_tensor(frame[None], device=self.engine.device)
-        self.carry, out, vad = frame_step(self.engine.rnn, self.carry, x, self.engine.weights)
+        self.carry, out, vad = frame_step(self.engine.rnn, self.carry, x, self.engine.rnn_weights)
         return out[0].cpu().numpy(), float(vad[0])
 
     def process_chunk(self, frames) -> tuple[np.ndarray, np.ndarray]:
@@ -263,7 +262,9 @@ def denoise_audio(
 
     Truncates the tail to whole frames (the reference CLI's behavior) and by
     default drops the first output frame.  Long signals run in
-    ``chunk_frames``-frame chunks with exact carry handoff.
+    ``chunk_frames``-frame chunks with exact carry handoff; the frames stay
+    in host memory and each chunk is uploaded for its own call, so the
+    device holds one chunk of input at a time, as in the JAX package.
     """
     engine = _engine(model, device)
     audio = np.asarray(audio, np.float32)
@@ -272,14 +273,12 @@ def denoise_audio(
         audio = audio[None]
     b, n = audio.shape
     t = n // FRAME_SIZE
-    frames = torch.as_tensor(
-        np.ascontiguousarray(audio[:, : t * FRAME_SIZE].reshape(b, t, FRAME_SIZE)),
-        device=engine.device,
-    )
+    frames = audio[:, : t * FRAME_SIZE].reshape(b, t, FRAME_SIZE)
     carry = init_batch_carry(engine.model.meta, b, engine.device)
     parts = []
     for start in range(0, t, chunk_frames):
-        carry, out, _ = process_frames(engine, carry, frames[:, start : start + chunk_frames])
+        chunk = np.ascontiguousarray(frames[:, start : start + chunk_frames])
+        carry, out, _ = process_frames(engine, carry, chunk)
         parts.append(out.cpu().numpy())
     out = np.concatenate(parts, axis=1).reshape(b, t * FRAME_SIZE)
     if drop_first_frame:

@@ -119,13 +119,13 @@ def rnn_step(rnn: Rnn, state: RnnState, features: torch.Tensor, weights: tuple |
 
     The dispatch of ``nnnoiseless_tpu/ops/rnn.py::rnn_step``: a
     standard-topology model on CUDA tensors runs kernel K5
-    (ops/rnn_kernel.py) with ``weights`` (its ``pack_weights``, packed here
+    (ops/rnn_kernel.py) with ``weights`` (its ``pack_tiled``, packed here
     when None); any other topology runs :meth:`Rnn.forward` on any device,
     as the JAX package does; CPU tensors run :meth:`Rnn.forward`.
     """
     if features.is_cuda and rnn.standard_topology():
         if weights is None:
-            weights = rnn_kernel.pack_weights(rnn, features.device)
+            weights = rnn_kernel.pack_tiled(rnn, features.device)
         hv, hn, hd, gains, vad = rnn_kernel.rnn_step_cuda(weights, *state, features)
         return RnnState(hv, hn, hd), gains, vad
     if features.device.type not in ("cpu", "cuda"):

@@ -50,6 +50,8 @@ def window_cuda(input_mem: torch.Tensor, lag: torch.Tensor) -> torch.Tensor:
     _check(input_mem, lag)
     if not (input_mem.is_contiguous() and lag.is_contiguous()):
         raise ValueError("input_mem and lag must be contiguous")
+    if input_mem.data_ptr() % 16:
+        raise ValueError("input_mem must be 16-byte aligned (the kernel reads float4s)")
     b = input_mem.shape[0]
     out = torch.empty((b, WINDOW_SIZE), dtype=torch.float32, device=input_mem.device)
     if b:

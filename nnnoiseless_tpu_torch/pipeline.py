@@ -224,7 +224,7 @@ def _pitch_filter(x, p, ex, ep, exp, gains):
 def frame_step(rnn: Rnn, carry: DenoiseCarry, frame: torch.Tensor, weights: tuple | None = None):
     """One 480-sample frame of each of B streams: (carry', out (B, 480),
     vad (B,)).  Samples are f32 in the i16 range.  ``weights``: the
-    model's ``ops/rnn_kernel.py::pack_weights`` for kernel K5 (packed per
+    model's ``ops/rnn_kernel.py::pack_tiled`` for kernel K5 (packed per
     call when None)."""
     feat_state, an = analyze_frame(carry.feat, frame)
     return _denoise_tail(rnn, carry, feat_state, an, weights)

@@ -7,7 +7,8 @@ a card (and without JAX) run::
 
 Bars: those of chip_smoke.py (pitch decisions may flip on near-ties, the
 sums run in another order than cuDNN's; waveforms as tests/conftest.py's
-accelerator bars; the RNN cell within 2e-5, the window bit-exact; the
+accelerator bars; the RNN cell within 2e-5, the window bit-exact, denoise_audio's peak
+device memory bounded by a chunk; the
 candidate lanes' lags exact and their values within 1e-5 relative; K2's
 FFT probe within 1e-5 of the row scale of float64 torch.fft).
 """
@@ -166,26 +167,74 @@ def test_stacked_pitch_kernel_matches_plain(device, b):
         assert float(((cand_k - cand_p).abs() / rowscale)[~differ].max()) < 5e-3
 
 
-@pytest.mark.parametrize("b", [37, 1])  # 2 tiles of 32 with a ragged one, and B=1
-def test_rnn_kernel_matches_plain(device, engine, b):
+def _rnn_inputs(device, b):
     rng = np.random.RandomState(4)
     hv, hn, hd, f = (
         torch.as_tensor((rng.randn(b, n) * sc).astype(np.float32), device=device)
         for n, sc in ((24, 0.5), (48, 0.5), (96, 0.5), (42, 2.0))
     )
-    got = rk.rnn_step_cuda(engine.weights, hv, hn, hd, f)
+    return hv, hn.clamp(min=0), hd, f
+
+
+# one stream a block (B <= 1024: 1, 2, 37) and 32 a block (1061, whose
+# last block holds 5 streams, and 4096)
+@pytest.mark.parametrize("b", [1, 2, 37, 1061, 4096])
+def test_rnn_kernel_matches_plain(device, engine, b):
+    hv, hn, hd, f = _rnn_inputs(device, b)
+    rk.launches = 0
+    got = rk.rnn_step_cuda(engine.rnn_weights, hv, hn, hd, f)
+    assert rk.launches == 1
     st, gains, vad = engine.rnn(RnnState(hv, hn, hd), f)
     for a, w in zip(got, (*st, gains, vad)):
         assert a.shape == w.shape
         torch.testing.assert_close(a, w, rtol=0, atol=2e-5)
 
 
-@pytest.mark.parametrize("b", [37, 1])
+@pytest.mark.parametrize("b", [1, 37, 1061])
+def test_rnn_kernel_matches_its_mirror(device, engine, b):
+    """rnn_step_staged sums as the kernel does at each tile and rounds
+    each multiply-add once, as fmaf does: bit-exact."""
+    hv, hn, hd, f = _rnn_inputs(device, b)
+    got = rk.rnn_step_cuda(engine.rnn_weights, hv, hn, hd, f)
+    want = rk.rnn_step_staged(engine.rnn, (hv, hn, hd), f)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b", [1, 7, 4096])
 def test_window_kernel_matches_plain(device, b):
+    """Bit-exact on lags 0 and 768, above 768 (zero fill), above 1023 and
+    negative (taken modulo 1024), and each value of start & 3."""
     rng = np.random.RandomState(5)
     mem = torch.as_tensor((rng.randn(b, 1728) * 1000).astype(np.float32), device=device)
-    lag = torch.as_tensor(rng.randint(-5, 1100, size=b).astype(np.int32), device=device)
-    torch.testing.assert_close(wk.window_cuda(mem, lag), wk.barrel_shift_window(mem, lag), rtol=0, atol=0)
+    lag = rng.randint(-3000, 3000, size=b).astype(np.int32)
+    lag[:7] = [0, 768, 1023, 769, 5, -6, 2047][:b]  # start & 3: 0, 0, 1, 3, 3, 2, 1
+    lag = torch.as_tensor(lag, device=device)
+    if b == 4096:
+        assert set(((768 - (lag & 1023)) & 3).tolist()) == {0, 1, 2, 3}
+    wk.launches = 0
+    got = wk.window_cuda(mem, lag)
+    assert wk.launches == 1
+    torch.testing.assert_close(got, wk.barrel_shift_window(mem, lag), rtol=0, atol=0)
+
+
+def test_denoise_audio_device_memory(device, engine):
+    """denoise_audio uploads one chunk at a time: the peak device memory of
+    a 10-minute signal stays within 2 MB of a 2-chunk signal's (the whole
+    10-minute signal is 115 MB)."""
+    rng = np.random.RandomState(9)
+    peaks = []
+    for seconds in (20, 600):
+        audio = (rng.randn(seconds * 48000) * 1000).astype(np.float32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        out = nt.denoise_audio(audio, engine, device=device)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated(device) - base)
+        assert out.shape == (seconds * 48000 - 480,) and np.isfinite(out).all()
+    assert peaks[1] <= peaks[0] + 2 * 2**20, peaks
 
 
 def test_per_frame_golden_and_counts(device):
@@ -222,7 +271,12 @@ def test_wrappers_refuse_bad_operands(device, engine):
         wk.window_at_lag(torch.zeros((2, 1728), device=device), torch.zeros(2, dtype=torch.int64, device=device))
     state = torch.zeros((2, 24), device=device)
     with pytest.raises(ValueError):
-        rk.rnn_step_cuda(engine.weights, state, state, state, torch.zeros((2, 42), device=device))
+        rk.rnn_step_cuda(engine.rnn_weights, state, state, state, torch.zeros((2, 42), device=device))
+    with pytest.raises(ValueError):  # K2's layout is not K5's
+        rk.rnn_step_cuda(engine.weights[0::2], *(torch.zeros((2, n), device=device) for n in (24, 48, 96, 42)))
+    with pytest.raises(ValueError):  # float4 reads need a 16-byte aligned history
+        wk.window_cuda(torch.zeros(2 * 1728 + 1, device=device)[1:].view(2, 1728),
+                       torch.zeros(2, dtype=torch.int32, device=device))
 
 
 def test_candidate_kernel_matches_plain(device):

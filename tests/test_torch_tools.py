@@ -1,6 +1,7 @@
 """The port's tools on the CPU: the pitch trace against the native engine
 and the JAX package's trace, the sine benchmark and its profiler trace,
-the correlation tool, and the attribution tool's sections at B=2, T=4."""
+the correlation tool, the attribution tool's sections at B=2, T=4, and
+kernel_ab.py's SASS counts on a hand-written listing."""
 
 import json
 
@@ -9,6 +10,8 @@ import pytest
 
 from nnnoiseless_tpu_torch import native
 from nnnoiseless_tpu_torch.tools import attrib, corr, profile, trace
+
+import kernel_ab
 
 
 @pytest.fixture(scope="module")
@@ -78,3 +81,28 @@ def test_attrib_sections_on_cpu():
     assert set(stages["ms"]) == names and set(stages["cost_ms"]) == names - {"none"}
     assert all(stages["finite"].values()) and stages["skip_none_bit_equal"]
     assert set(stages["launches"].values()) == {0}  # the plain versions on the CPU
+
+
+SASS = """
+		Function : _ZN12_GLOBAL__N_110rnn_kernelIN8rnn_tile4TileILi1ELi1ELi576ELi2EEEEEvPKfi
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   LDS R2, [R3] ;
+        /*0020*/                   I2F.S8 R4, R5 ;
+        /*0030*/                   FFMA R6, R2, R4, R6 ;
+        /*0040*/                   LDS.128 R8, [R3+0x10] ;
+        /*0050*/              @!P1 I2FP.F32.S32 R7, R8 ;
+        /*0060*/              @P0  BRA 0x30 ;
+        /*0070*/                   PRMT R9, R8, 0x7440, R9 ;
+        /*0080*/                   FADD R9, R9, -8388736 ;
+        /*0090*/                   EXIT ;
+		Function : _Z10frame_loopPf
+        /*0000*/                   FFMA R6, R2, R4, R6 ;
+"""
+
+
+def test_kernel_ab_sass_counts():
+    """Counts over the whole function, for K5's and K6's kernels only;
+    predicated instructions and I2FP count."""
+    (name, counts), = kernel_ab.sass_counts(SASS).items()
+    assert "rnn_kernel" in name
+    assert counts == {"FFMA": 1, "LDS": 2, "I2F": 2, "PRMT": 1, "FADD": 1}

@@ -37,7 +37,13 @@
    it (K2 does not launch), against the same model on the CPU;
 11. K4 (candidate lanes) against its plain version on the plain pitch
    chain's tables of the phase-6 input (R = 409,600 rows) and on 100 of
-   them, with the search's pitch index and with a seeded one over [0, 768);
+   them, with the search's pitch index and with a seeded one over [0, 768):
+   t-lanes exact, every lane within 1e-5 relative; its device time cold,
+   warm and a call, as phase 7 times, beside the earlier design's; at full
+   size its sector floor (the distinct 32-byte sectors its reads touch,
+   k4_sectors, plus xx, pidx and the lanes written, over 3.35 TB/s) and
+   the gather alone (not the whole function): torch.gather of the same 88
+   positions a row, timed cold;
 12. the tools path: tools.attrib.main() at full size (golden, K3 against
    the old chain with K4, totals, the precompute's prefix attribution, K2's
    stage bisection through its skip knob);
@@ -98,14 +104,20 @@ PROBE_CHUNK = 65536  # rows per float64 reference chunk in phase 15
 PROBE_BAR = 1e-5  # of the row scale
 # times before the current designs (PERF.md section 6, NVIDIA H100 80GB HBM3,
 # 700 W): K3 at R=1 before its register tiles, a call; K5 and K6 before
-# theirs on the device, cold and warm as phase 7 times them (kernel_ab.py)
+# theirs on the device, cold and warm as phase 7 times them (kernel_ab.py);
+# K4 at R rows before its lane-a-candidate design, on the device
+# (kernel_ab.py, on its seeded tables)
 BEFORE = {("K3", 1): "direct-sum kernel 0.0192-0.0321 ms a call",
           ("K5", 4096): "scalar-load kernel 0.1224 ms cold, 0.1173 warm",
           ("K5", 64): "scalar-load kernel 0.1157 ms cold, 0.1156 warm",
           ("K5", 1): "scalar-load kernel 0.1137 ms cold, 0.1136 warm",
           ("K6", 4096): "scalar loads, 320 threads a stream: 0.0182 ms cold, 0.0134 warm",
           ("K6", 64): "scalar loads, 320 threads a stream: 0.0032 ms cold, 0.0018 warm",
-          ("K6", 1): "scalar loads, 320 threads a stream: 0.0017 ms cold, 0.0017 warm"}
+          ("K6", 1): "scalar loads, 320 threads a stream: 0.0017 ms cold, 0.0017 warm",
+          ("K4", 409600): "one thread a row, staged in shared memory: 0.8333 ms cold, 0.8347 warm "
+                          "with pidx over [181, 768), 0.7694 and 0.7687 over [0, 768)",
+          ("K4", 100): "one thread a row, staged in shared memory: 0.0230 ms cold, 0.0138 warm "
+                       "with pidx over [181, 768), 0.0196 and 0.0134 over [0, 768)"}
 # K5 and K6 also at these batches in phase 7: 1061 ends in a partial block
 # of K5's 32-stream tile, 1024 and 64 run its one-stream tile
 MID_BATCHES = (1061, 1024, 64)
@@ -257,6 +269,39 @@ def kernel_bounds(b: int, t: int, r4: int, r_fwd: int, r_inv: int, band_nnz: int
         "rfft960": (4 * r_fwd * (960 + 962), fft_flops * r_fwd),
         "irfft960": (4 * r_inv * (962 + 960), fft_flops * r_inv),
     }
+
+
+def k4_reads(torch, pidx):
+    """The lags that K4 looks up for each row of (R,) int ``pidx``
+    (csrc/candidate_lanes.cuh, t0 = min(pidx // 2, 383)): (R, 59) lags t of
+    corr_at (t - 1, t, t + 1 of each candidate t0, t1_2 .. t1_15, then each
+    t1b) and (R, 29) of yy_at (each candidate, then each t1b), 88 a row.
+    corr_at(t) reads corr[384 - t] and yy_at(t) reads yy[t]; a lookup off
+    [0, 385) reads nothing."""
+    from nnnoiseless_tpu_torch.tables import SECOND_CHECK
+
+    dev = pidx.device
+    t0 = torch.clamp(pidx.to(torch.int64) // 2, max=383)[:, None]
+    k = torch.arange(2, 16, device=dev)
+    t1 = (2 * t0 + k) // (2 * k)
+    second = (2 * torch.tensor(SECOND_CHECK[2:], device=dev) * t0 + k) // (2 * k)
+    t1b = torch.where(k == 2, torch.where(t1 + t0 > 384, t0, t0 + t1), second)
+    cand = torch.cat([t0, t1], 1)
+    return torch.cat([cand - 1, cand, cand + 1, t1b], 1), torch.cat([cand, t1b], 1)
+
+
+def k4_sectors(torch, pidx) -> int:
+    """Distinct 32-byte sectors of the (R, 385) f32 tables corr and yy that
+    K4's lookups touch for the pitch indices ``pidx`` (each table 32-byte
+    aligned, its rows packed 1540 bytes apart): the least its reads can
+    move from memory, since a lone 4-byte read moves a whole sector."""
+    corr_t, yy_t = k4_reads(torch, pidx)
+    first = torch.arange(pidx.shape[0], device=pidx.device)[:, None] * 385
+    total = 0
+    for idx in (384 - corr_t, yy_t):
+        on = (idx >= 0) & (idx < 385)
+        total += int(torch.unique(((first + idx) // 8)[on]).numel())
+    return total
 
 
 def pitch_margins(torch, windows):
@@ -723,6 +768,8 @@ def main() -> int:
     rng11 = np.random.RandomState(11)
     pidx_draw = torch.as_tensor(rng11.randint(0, 768, size=b6 * t6).astype(np.int32), device=dev)
     k4_err = 0.0
+    if any(a.data_ptr() % 32 for a in (ctab, yytab)):
+        raise RuntimeError("K4's tables are not 32-byte aligned, as the sector count assumes")
     for rows in (b6 * t6, K4_SMALL):
         for label, pidx in (("search", pidx_search), ("drawn", pidx_draw)):
             args = (ctab[:rows], yytab[:rows], xx11[:rows], pidx[:rows])
@@ -733,15 +780,37 @@ def main() -> int:
             rel_ok = bool((d <= 1e-5 * want.abs()).all())
             err = float(d.max())
             k4_err = max(k4_err, err)
-            reps = 20 if rows == K4_SMALL else 5
-            k_ms, p_ms = cuda_ms(torch, lambda: fk.candidates_cuda(*args), reps), \
-                cuda_ms(torch, lambda: fk.candidates_plain(*args), reps)
-            if rows == b6 * t6 and label == "search":
-                times["k4"] = (k_ms, p_ms)
+            del got, want, d
+            # at full size the 1.26 GB of tables pass the 50 MB L2: warm is cold too
+            reps = 200 if rows == K4_SMALL else 5
+            call_ms = cuda_ms(torch, lambda: fk.candidates_cuda(*args), reps)
+            warm_ms = graph_ms(torch, lambda: fk.candidates_cuda(*args), reps)
+            k_ms = cold_ms(torch, fk.candidates_cuda, args, reps)
+            p_ms = cuda_ms(torch, lambda: fk.candidates_plain(*args), min(reps, 20))
+            before = f" (before: {BEFORE['K4', rows]})" if ("K4", rows) in BEFORE else ""
             print(f"[11] K4 R={rows} pidx {label}: t-lanes exact {t_ok}, max abs {err:.3g}, within 1e-5 "
-                  f"relative {rel_ok}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms ({card})")
+                  f"relative {rel_ok}; kernel on the device (CUDA graph) {k_ms:.4f} ms cold, {warm_ms:.4f} "
+                  f"ms warm; {call_ms:.4f} ms a call{before}; plain {p_ms:.4f} ms ({card})")
             if not (t_ok and rel_ok):
                 raise RuntimeError(f"K4 disagrees with its plain version at R={rows}, pidx {label}")
+            if rows == K4_SMALL:
+                continue
+            # the sector floor, and the gather of the same 88 positions a row
+            sectors = k4_sectors(torch, pidx)
+            floor_ms = (32 * sectors + rows * (8 + 4 * fk.N_CAND)) / PEAK_BYTES * 1e3
+            corr_t, yy_t = k4_reads(torch, pidx)
+            gather_args = (ctab, yytab, (384 - corr_t).clamp(0, 384), yy_t.clamp(0, 384))
+            del corr_t, yy_t
+            gather_ms = cold_ms(torch, lambda c, y, ci, yi: (c.gather(1, ci), y.gather(1, yi)), gather_args, reps)
+            del gather_args
+            print(f"[11] K4 R={rows} pidx {label}: {sectors / rows:.2f} distinct 32-byte sectors read a row; "
+                  f"sector floor {floor_ms:.4f} ms (reads, xx, pidx and the 105 lanes written, over "
+                  f"{PEAK_BYTES / 1e12:.2f} TB/s): the kernel at {floor_ms / k_ms:.1%} of it; the gather "
+                  f"alone (not the whole function), torch.gather of the 88 positions a row, {gather_ms:.4f} "
+                  f"ms cold ({card})")
+            if label == "search":
+                k4_row = {"ms": k_ms, "plain_ms": p_ms, "sector_floor_ms": floor_ms,
+                          "gather_alone_ms": gather_ms}
     del ctab, yytab, xx11, pidx_search, pidx_draw
 
     # ---- 12. the tools path: attribution at full size ------------------------------------
@@ -939,8 +1008,11 @@ def main() -> int:
               counts9["K5"], *results7["K5", b6]),
         entry("K6", "_pallas_window", "window_kernel.cu", "nnnoiseless_tpu/ops/window.py:65",
               counts9["K6"], *results7["K6", b6], k6_lib),
-        entry("K4", "candidates_pallas", "candidates_kernel.cu", "nnnoiseless_tpu/ops/frame_kernel.py:408",
-              counts12["K4"], k4_err, *times["k4"]),
+        # K4: no one PyTorch call computes its function, so library_ms is null;
+        # the gather of its 88 positions a row and its sector floor stand beside
+        {**entry("K4", "candidates_pallas", "candidates_kernel.cu", "nnnoiseless_tpu/ops/frame_kernel.py:408",
+                 counts12["K4"], k4_err, k4_row["ms"], k4_row["plain_ms"]),
+         "sector_floor_ms": k4_row["sector_floor_ms"], "gather_alone_ms": k4_row["gather_alone_ms"]},
         # K2's transforms alone; nothing on the main path calls them, and
         # they replace no TPU kernel of their own
         *({**entry(name, f"{name}_probe", "fft960_kernel.cu", None, counts6[2], e, k_ms, p_ms, lib_ms),

@@ -1,5 +1,6 @@
-"""Compare two checkouts' kernels K5 (RNN cell) and K6 (pitch-lag window)
-on one CUDA card: device times and SASS instruction counts.
+"""Compare two checkouts' kernels K4 (candidate lanes), K5 (RNN cell) and
+K6 (pitch-lag window) on one CUDA card: outputs, device times, registers
+and SASS instruction counts.
 
     python3 kernel_ab.py BASE [CHANGE]
 
@@ -8,20 +9,27 @@ to this file's directory), for example an earlier commit unpacked with
 ``git archive`` into a git-ignored directory.  Each runs in a process of
 its own, in the order BASE, CHANGE, CHANGE, BASE, so that a drift of the
 card shows as a difference between the two runs of one checkout.  A run
-builds its checkout's kernels, holds each against its plain version on
-seeded inputs (K5 within 2e-5, K6 bit-exact), times it at B = 4096, 1061,
-1024, 64 and 1 with chip_smoke.py's timers (calls replayed from a CUDA
+builds its checkout's kernels and holds each against its plain version on
+seeded inputs: K5 within 2e-5, K6 bit-exact, K4 with its lag lanes exact
+and every lane within 1e-5 relative, at R = 409,600, 4097, 100 and 1 rows
+of seeded tables, with pitch indices drawn over the search's range
+[181, 768) and over [0, 768) with 0-19 among them (off-table lookups).
+It times each with chip_smoke.py's timers (calls replayed from a CUDA
 graph: ``cold_ms``, every call on its own copy of the inputs, and warm,
-every call on the same inputs), and counts the FFMA, LDS, I2F (with
-I2FP), PRMT and FADD instructions in the SASS of each kernel function
-(``cuobjdump -sass`` of the built library; static counts over the whole
-function, not counts of executed instructions).  Prints each run's JSON
-line, then a table of each checkout's mean times and the card's name and
-power limit.
+every call on the same inputs; K5 and K6 at B = 4096, 1061, 1024, 64 and
+1), hashes K4's outputs, reads each kernel function's registers and local
+memory (``cuobjdump -res-usage``; local memory holds spills) and counts
+the FFMA, LDS, I2F (with I2FP), PRMT, FADD, LDG, STG and STS instructions
+in its SASS (``cuobjdump -sass`` of the built library; static counts over
+the whole function, not counts of executed instructions).  Prints each
+run's JSON line, then a table of each checkout's mean times, whether K4's
+outputs are bit-equal across the runs, and the card's name and power
+limit.
 """
 
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import json
 import pathlib
@@ -34,8 +42,10 @@ import numpy as np
 
 HERE = pathlib.Path(__file__).resolve().parent
 BATCHES = (4096, 1061, 1024, 64, 1)
-OPS = ("FFMA", "LDS", "I2F", "PRMT", "FADD")
-KERNELS = ("rnn_kernel", "window_kernel")  # the kernel functions counted in the SASS
+K4_ROWS = (409600, 4097, 100, 1)
+OPS = ("FFMA", "LDS", "I2F", "PRMT", "FADD", "LDG", "STG", "STS")
+KERNELS = ("rnn_kernel", "window_kernel", "candidates_kernel")  # the kernel functions counted
+RES = ("REG", "STACK", "SHARED", "LOCAL")  # of cuobjdump -res-usage
 
 
 def _smoke():
@@ -64,6 +74,34 @@ def sass_counts(sass: str) -> dict:
     return out
 
 
+def res_usage(text: str) -> dict:
+    """{function: {REG, STACK, SHARED, LOCAL}} over ``cuobjdump -res-usage``
+    text, for the functions whose (mangled) name holds one of KERNELS."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function (\S+?):?\s*$", line)
+        if m:
+            cur = m.group(1) if any(k in m.group(1) for k in KERNELS) else None
+            continue
+        if cur is not None and "REG:" in line:
+            out[cur] = {k: int(v) for k, v in re.findall(r"\b([A-Z]+):(\d+)", line) if k in RES}
+            cur = None
+    return out
+
+
+def k4_inputs(torch, dev):
+    """Seeded (409,600, 385) tables corr and yy (energies >= 0), xx, and
+    the two kinds of pitch index, drawn on the card from one generator."""
+    big = max(K4_ROWS)
+    g = torch.Generator(device=dev).manual_seed(12)
+    draw = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    corr, yy, xx = draw(big, 385) * 1e3, (draw(big, 385) * 1e4).abs(), (draw(big) * 1e4).abs()
+    search = torch.randint(181, 768, (big,), generator=g, device=dev, dtype=torch.int32)
+    drawn = torch.randint(0, 768, (big,), generator=g, device=dev, dtype=torch.int32)
+    drawn[:20] = torch.arange(20, dtype=torch.int32, device=dev)
+    return corr, yy, xx, {"search": search, "drawn": drawn}
+
+
 def run_one(root: pathlib.Path) -> dict:
     """Build, check and time the kernels of the checkout at ``root``."""
     sys.path.insert(0, str(root))
@@ -71,6 +109,7 @@ def run_one(root: pathlib.Path) -> dict:
 
     import nnnoiseless_tpu_torch as nt
     from nnnoiseless_tpu_torch import _build
+    from nnnoiseless_tpu_torch.ops import frame_kernel as fk
     from nnnoiseless_tpu_torch.ops import rnn_kernel as rk
     from nnnoiseless_tpu_torch.ops import window as wk
     from nnnoiseless_tpu_torch.ops.rnn import RnnState
@@ -104,10 +143,26 @@ def run_one(root: pathlib.Path) -> dict:
             reps = 20 if b == big else 200
             times[f"{name} B={b}"] = (smoke.cold_ms(torch, kern, args, reps),
                                       smoke.graph_ms(torch, lambda: kern(*args), reps))
+    del rnn_in, mem, lag
+    corr, yy, xx, pidx_kinds = k4_inputs(torch, dev)
+    digests = {}
+    for r in K4_ROWS:
+        for label, pidx in pidx_kinds.items():
+            args = (corr[:r], yy[:r], xx[:r], pidx[:r])
+            got, want = fk.candidates_cuda(*args), fk.candidates_plain(*args)
+            if not (torch.equal(got[:, smoke.T_LANES], want[:, smoke.T_LANES])
+                    and bool(((got - want).abs() <= 1e-5 * want.abs()).all())):
+                raise RuntimeError(f"K4 disagrees with its plain version at R={r}, pidx {label} in {root}")
+            digests[f"R={r} {label}"] = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+            del got, want
+            reps = 10 if r == max(K4_ROWS) else 200
+            times[f"K4 R={r} {label}"] = (smoke.cold_ms(torch, fk.candidates_cuda, args, reps),
+                                          smoke.graph_ms(torch, lambda: fk.candidates_cuda(*args), reps))
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", str(_build.build())], check=True, capture_output=True,
-                          text=True).stdout
-    return {"root": str(root), "ms_cold_warm": times, "sass": sass_counts(sass)}
+    lib = str(_build.build())
+    dump = lambda flag: subprocess.run([cuobjdump, flag, lib], check=True, capture_output=True, text=True).stdout
+    return {"root": str(root), "ms_cold_warm": times, "k4_sha256": digests,
+            "res": res_usage(dump("-res-usage")), "sass": sass_counts(dump("-sass"))}
 
 
 def main(argv: list[str]) -> int:
@@ -131,6 +186,8 @@ def main(argv: list[str]) -> int:
         mean = lambda rs: [sum(r["ms_cold_warm"][key][i] for r in rs) / 2 for i in (0, 1)]
         b_ms, c_ms = mean([runs[0], runs[3]]), mean(runs[1:3])
         print(f"{key}: base {b_ms[0]:.5f}, {b_ms[1]:.5f}; change {c_ms[0]:.5f}, {c_ms[1]:.5f}")
+    same = all(r["k4_sha256"] == runs[0]["k4_sha256"] for r in runs)
+    print(f"K4 outputs bit-equal across the four runs, at every R and pidx kind: {same}")
     print(_smoke().card_line())
     return 0
 

@@ -279,23 +279,29 @@ def test_wrappers_refuse_bad_operands(device, engine):
                        torch.zeros(2, dtype=torch.int32, device=device))
 
 
-def test_candidate_kernel_matches_plain(device):
-    """K4 on seeded tables, with pitch indices over [0, 768) and the small
-    ones whose lookups fall off the tables (they read 0)."""
+# rows: one, a row short of a 16-row block, one block, one row over, and
+# ragged larger counts; pitch indices over the search's range, or over
+# [0, 768) with 0-19 first, whose lookups fall off the tables (they read 0)
+@pytest.mark.parametrize("pidx_kind", ["search", "drawn"])
+@pytest.mark.parametrize("r", [1, 15, 16, 17, 300, 4097])
+def test_candidate_kernel_matches_plain(device, r, pidx_kind):
+    """K4 on seeded tables: lag lanes exact, every lane within 1e-5
+    relative, one launch."""
     rng = np.random.RandomState(6)
-    r = 300
     corr = torch.as_tensor((rng.randn(r, 385) * 1e3).astype(np.float32), device=device)
     yy = torch.as_tensor(np.abs(rng.randn(r, 385) * 1e4).astype(np.float32), device=device)
     xx = torch.as_tensor(np.abs(rng.randn(r) * 1e4).astype(np.float32), device=device)
-    pidx = rng.randint(0, 768, size=r)
-    pidx[:20] = np.arange(20)
+    if pidx_kind == "search":
+        pidx = rng.randint(181, 768, size=r)
+    else:
+        pidx = rng.randint(0, 768, size=r)
+        pidx[:20] = np.arange(20)[:r]
     pidx = torch.as_tensor(pidx.astype(np.int32), device=device)
     fk.cand_launches = 0
     got = fk.candidates(corr, yy, xx, pidx)
     want = fk.candidates_plain(corr, yy, xx, pidx)
     assert fk.cand_launches == 1
-    t_lanes = [0] + list(range(4, 18))
-    torch.testing.assert_close(got[:, t_lanes], want[:, t_lanes], rtol=0, atol=0)
+    torch.testing.assert_close(got[:, T_LANES], want[:, T_LANES], rtol=0, atol=0)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
 
 

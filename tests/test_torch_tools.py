@@ -1,16 +1,20 @@
 """The port's tools on the CPU: the pitch trace against the native engine
 and the JAX package's trace, the sine benchmark and its profiler trace,
-the correlation tool, the attribution tool's sections at B=2, T=4, and
-kernel_ab.py's SASS counts on a hand-written listing."""
+the correlation tool, the attribution tool's sections at B=2, T=4,
+kernel_ab.py's SASS counts and resource usage on hand-written listings,
+and chip_smoke.py's count of the sectors that K4 reads."""
 
 import json
 
 import numpy as np
 import pytest
+import torch
 
 from nnnoiseless_tpu_torch import native
+from nnnoiseless_tpu_torch.ops.pitch import candidate_lanes
 from nnnoiseless_tpu_torch.tools import attrib, corr, profile, trace
 
+import chip_smoke
 import kernel_ab
 
 
@@ -94,15 +98,84 @@ SASS = """
         /*0060*/              @P0  BRA 0x30 ;
         /*0070*/                   PRMT R9, R8, 0x7440, R9 ;
         /*0080*/                   FADD R9, R9, -8388736 ;
-        /*0090*/                   EXIT ;
+        /*0090*/                   STS.128 [R3], R8 ;
+        /*00a0*/                   EXIT ;
 		Function : _Z10frame_loopPf
         /*0000*/                   FFMA R6, R2, R4, R6 ;
+		Function : _ZN12_GLOBAL__N_117candidates_kernelEPKfS1_S1_PKiPfi
+        /*0000*/                   LDG.E.CONSTANT R2, desc[UR4][R2.64] ;
+        /*0010*/              @!P0 LDG.E.CONSTANT R3, desc[UR4][R4.64] ;
+        /*0020*/                   SHFL.IDX PT, R5, R2, RZ, 0x101f ;
+        /*0030*/                   STG.E desc[UR4][R6.64], R5 ;
+        /*0040*/                   STG.E desc[UR4][R6.64+0x3c], R3 ;
+        /*0050*/                   EXIT ;
 """
 
 
 def test_kernel_ab_sass_counts():
-    """Counts over the whole function, for K5's and K6's kernels only;
-    predicated instructions and I2FP count."""
-    (name, counts), = kernel_ab.sass_counts(SASS).items()
-    assert "rnn_kernel" in name
-    assert counts == {"FFMA": 1, "LDS": 2, "I2F": 2, "PRMT": 1, "FADD": 1}
+    """Counts over the whole function, for K4's, K5's and K6's kernels
+    only; predicated instructions, I2FP and every width of a load or store
+    count."""
+    counts = kernel_ab.sass_counts(SASS)
+    assert len(counts) == 2
+    (rnn,) = (c for name, c in counts.items() if "rnn_kernel" in name)
+    (cand,) = (c for name, c in counts.items() if "candidates_kernel" in name)
+    assert rnn == {"FFMA": 1, "LDS": 2, "I2F": 2, "PRMT": 1, "FADD": 1, "LDG": 0, "STG": 0, "STS": 1}
+    assert cand == {"FFMA": 0, "LDS": 0, "I2F": 0, "PRMT": 0, "FADD": 0, "LDG": 2, "STG": 2, "STS": 0}
+
+
+RES_USAGE = """
+Resource usage:
+ Common:
+  GLOBAL:0 CONSTANT[3]:24
+ Function _ZN12_GLOBAL__N_117candidates_kernelEPKfS1_S1_PKiPfi:
+  REG:30 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:572 TEXTURE:0 SURFACE:0 SAMPLER:0
+ Function _Z10frame_loopPf:
+  REG:128 STACK:24 SHARED:0 LOCAL:24 CONSTANT[0]:900 TEXTURE:0 SURFACE:0 SAMPLER:0
+ Function _ZN12_GLOBAL__N_113window_kernelEPKfPKiPfi:
+  REG:26 STACK:8 SHARED:0 LOCAL:8 CONSTANT[0]:380 TEXTURE:0 SURFACE:0 SAMPLER:0
+"""
+
+
+def test_kernel_ab_res_usage():
+    """Registers, stack, shared and local memory (spills) of K4's, K5's and
+    K6's kernel functions only."""
+    res = kernel_ab.res_usage(RES_USAGE)
+    assert res == {
+        "_ZN12_GLOBAL__N_117candidates_kernelEPKfS1_S1_PKiPfi": {"REG": 30, "STACK": 0, "SHARED": 0, "LOCAL": 0},
+        "_ZN12_GLOBAL__N_113window_kernelEPKfPKiPfi": {"REG": 26, "STACK": 8, "SHARED": 0, "LOCAL": 8},
+    }
+
+
+def test_k4_sectors_match_a_set_count():
+    """chip_smoke.k4_reads holds, row by row, the lags that the plain walk
+    (ops/pitch.py::candidate_lanes) looks up, and k4_sectors counts the
+    distinct 32-byte sectors of those lookups that fall on the tables:
+    64 rows with pitch indices over [0, 768), the smallest among them (their
+    lookups fall off the tables)."""
+    rows = 64
+    pidx = np.random.RandomState(13).randint(0, 768, size=rows)
+    pidx[:4] = [0, 1, 3, 767]
+    pidx = torch.as_tensor(pidx.astype(np.int32))
+    seen = {"corr": [], "yy": []}
+
+    def spy(name):
+        def at(t):
+            seen[name].append(t.clone())
+            return torch.zeros(t.shape)
+        return at
+
+    candidate_lanes(torch.clamp(pidx.to(torch.int64) // 2, max=383), torch.zeros(rows), spy("corr"), spy("yy"))
+    corr_t, yy_t = chip_smoke.k4_reads(torch, pidx)
+    assert corr_t.shape == (rows, 59) and yy_t.shape == (rows, 29)
+    sectors = set()
+    for name, reads in (("corr", corr_t), ("yy", yy_t)):
+        looked_up = torch.stack(seen[name], 1)
+        for r in range(rows):
+            assert set(looked_up[r].tolist()) == set(reads[r].tolist())
+            for t in looked_up[r].tolist():
+                i = 384 - t if name == "corr" else t
+                if 0 <= i < 385:
+                    sectors.add((name, (r * 385 + i) // 8))
+    assert any(t < 0 or t > 384 for t in yy_t[:4].flatten().tolist() + corr_t[:4].flatten().tolist())
+    assert chip_smoke.k4_sectors(torch, pidx) == len(sectors)

@@ -60,7 +60,24 @@
 16. K1 by stage through its skip knob at B=4096, T=100: skip=() bit-equal
    to the production launch, then each stub against the plain version's
    stub on phase 3's input and bars, and its cost, production time minus
-   the stub's (best of 3).
+   the stub's (best of 3);
+17. the training path (nnnoiseless_tpu_torch.training): a synthetic corpus
+   (examples/train_synthetic.py, seed 0: 8 voices and 6 white, pink and
+   band noises of 10 s); one generator chunk at w = 96 worlds, T = 625
+   frames (K1 at B = 288, K6 at B = 96) through the kernels and through
+   their plain versions (K1 under phase 6's bars on the combined streams,
+   whose lanes the generator reads; on the clean and noise streams, where
+   digital silence leaves float32 ill-conditioned, the kernel off the
+   float64 chain on no more rows than the plain version and by no more;
+   ex within 1e-6 relative, silence equal, features within 1e-4 on all
+   but 2 of the 96 combined streams, each printed where it parts with
+   K1's pitch index flips and their float64 margins); generate at workers=96, chunk=625 for 120,000
+   rows after a warm-up (rows/s, device_s, host_s); the float network and
+   its loss gradient at B=4, T=200 on the card against the CPU; fit at
+   batch 32 x 2000 (60 sequences of the rows), a warm-up step and 5 timed
+   (ms a step, device operations a step by torch.profiler, the losses, the
+   weight clip); the int8 export through denoise_audio (K1, K2) on a 2 s
+   mix against the CPU under the golden bars.
 
 Any failure exits non-zero before the last line.  The last two lines are a
 JSON object with each kernel's launches, error, times and bound, and
@@ -128,6 +145,16 @@ PHASE9_MAX = 64  # K2 against its plain version at full size: max units a stream
 PHASE9_OUTLIERS = 0.001  # ... on all but this share of the streams
 NEAR_TIE = 1e-4  # pitch decisions: a float64 margin under which f32 rounding may flip the pick
 NEAR_TIE_SHARE = 1e-4  # ... and the share of windows at full size that may flip by over 2
+# phase 17: the generator's shape (w worlds, T frames a chunk: the measured
+# best of docs/TRAINING_RUN.md), its rows, the trainer's batch, window and
+# timed steps, and the gradient check's (B, T)
+GEN_WORLDS, GEN_CHUNK, GEN_ROWS = 96, 625, 120_000
+CORPUS = (8, 6, 10.0)  # voices, noises, seconds a file
+TRAIN_BATCH, TRAIN_WINDOW, TRAIN_STEPS = 32, 2000, 5
+GRAD_SHAPE = (4, 200)
+GEN_FEAT_BAR = 1e-4  # the CPU test's feature bar against the JAX generator
+GEN_FLIP_STREAMS = 2  # combined streams whose features may part at a pitch decision flip
+SERVE_SECONDS = 2.0
 
 
 def fft960_flops() -> int:
@@ -332,6 +359,20 @@ def pitch_margins(torch, windows):
     return coarse, fine
 
 
+def raw_windows(torch, ds, w0):
+    """The function from flat (t, b) window indices of K1's input (ds, w0)
+    to their (n, 864) raw windows."""
+    b_count = ds.shape[0]
+
+    def windows(idx):
+        t, b = idx // b_count, idx % b_count
+        w = ds[b[:, None], DS_STEP * (t + 1)[:, None] + torch.arange(N_DS, device=ds.device)]
+        w[:, 0] = w0[t, b]
+        return w
+
+    return windows
+
+
 def pitch_bars(torch, kern, plain, lag_lanes: bool = True, windows=None) -> tuple[bool, float, str]:
     """Phase 3's bars on a pitch kernel's (cand, pidx) against its plain
     version's: at most 1% of the windows differ in pidx or (``lag_lanes``)
@@ -453,6 +494,267 @@ def custom_model(nt, seed: int):
         for name, n_in, n, _ in layers
     }
     return nt.RnnModel(params, ModelMeta(*(LayerMeta(n_in, n, a) for _, n_in, n, a in layers)))
+
+
+def training_phase(torch, dev, card: str, reset_counts, counts) -> None:
+    """Phase 17, the training path (see the module docstring).  Raises on
+    any failed bar."""
+    import copy
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import nnnoiseless_tpu_torch as nt
+    from nnnoiseless_tpu_torch import chunk as chunk_mod
+    from nnnoiseless_tpu_torch import pipeline as pipe_mod
+    from nnnoiseless_tpu_torch.chunk import decimate
+    from nnnoiseless_tpu_torch.ops import pitch_kernel as pk
+    from nnnoiseless_tpu_torch.ops import window as wk
+    from nnnoiseless_tpu_torch.ops.biquad import biquad_filter_frames
+    from nnnoiseless_tpu_torch.ops.pitch import pitch_chain
+    from nnnoiseless_tpu_torch.tables import BIQUAD_HP_A, BIQUAD_HP_B
+    from nnnoiseless_tpu_torch.tools.datagen_bench import _load_synth
+    from nnnoiseless_tpu_torch.training import data as td
+    from nnnoiseless_tpu_torch.training.losses import l2_regularization, total_loss
+    from nnnoiseless_tpu_torch.training.network import (
+        WEIGHT_CLIP, export_model, init_train_params, sequence_forward,
+    )
+    from nnnoiseless_tpu_torch.training.train import fit, make_optimizer, train_step_indexed
+
+    ts = _load_synth()
+    failures = []  # every bar is read before the phase fails, so that one run shows them all
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- the corpus ----
+        t0 = time.perf_counter()
+        rng = np.random.RandomState(0)
+        n_voices, n_noises, seconds = CORPUS
+        voices, noises = [], []
+        for i in range(n_voices):
+            voices.append(os.path.join(tmp, f"voice{i}.wav"))
+            ts.write_wav(voices[-1], (ts.synth_voice if i < 6 else ts.synth_voice_varied)(rng, seconds=seconds))
+        for i in range(n_noises):
+            noises.append(os.path.join(tmp, f"noise{i}.wav"))
+            ts.write_wav(noises[-1], ts.synth_noise(rng, ("white", "pink", "band")[i % 3], seconds=seconds))
+        print(f"[17] corpus: {n_voices} voices, {n_noises} noises of {seconds:g} s, built in "
+              f"{time.perf_counter() - t0:.1f} s; host cores {os.cpu_count()}")
+
+        # ---- one generator chunk through the kernels and through the plain versions ----
+        w, t = GEN_WORLDS, GEN_CHUNK
+        with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+            frames_np, _, _ = td._mix_chunk(td._make_worlds(voices, noises, t, 0, w), t, pool)
+        frames = torch.from_numpy(frames_np.reshape(2 * w, t, FRAME)).to(dev)
+        states = pipe_mod.init_feature_state(3 * w, dev)
+        reset_counts()
+        _, feats_k, ex_k, sil_k = td._feature_chunk(states, frames)
+        torch.cuda.synchronize()
+        chunk_counts = counts()
+        print(f"[17] generator chunk w={w} T={t}: launches K1 {chunk_counts['K1']} (B={3 * w}), "
+              f"K6 {chunk_counts['K6']} (B={w})")
+        if chunk_counts["K1"] != 1 or chunk_counts["K6"] != t:
+            failures.append("the generator chunk did not launch K1 once and K6 once a frame")
+        wrappers = (chunk_mod.pitch_analysis_stream, pipe_mod.window_at_lag)
+        chunk_mod.pitch_analysis_stream, pipe_mod.window_at_lag = pk.pitch_analysis_plain, wk.barrel_shift_window
+        try:
+            reset_counts()
+            _, feats_p, ex_p, sil_p = td._feature_chunk(states, frames)
+            torch.cuda.synchronize()
+        finally:
+            chunk_mod.pitch_analysis_stream, pipe_mod.window_at_lag = wrappers
+        if counts()["K1"] or counts()["K6"]:
+            failures.append("the plain run of the generator chunk launched a kernel")
+
+        # K1 on the chunk's 3w streams against its plain version.  The
+        # generator reads the pitch lanes of the combined streams only; they
+        # are held to phase 6's bars.  The clean and noise streams' lanes are
+        # computed and never read.  There a clean voice's digital silence,
+        # the high-pass filter's decay after it (down to 1e-42) and the
+        # windows that straddle it leave float32 ill-conditioned: on such
+        # windows either version can land up to ~0.4 of a row's scale off
+        # the float64 chain, each on rows of its own, and on silent ones
+        # both yield NaN lanes.  So on a clean or noise window that holds
+        # sound (a sample of a unit or more), a pitch index step over 2 must
+        # be a float64 near-tie; and of the rows where the two part by over
+        # phase 6's 5e-3 lane bar, the kernel may be off the float64 chain by
+        # over the bar on no more rows than the plain version, and by no
+        # more at worst.
+        fr = frames.reshape(w, 2, t, FRAME)
+        frames3 = torch.cat([fr, (fr[:, 0] + fr[:, 1])[:, None]], 1).reshape(3 * w, t, FRAME)
+        filtered, _ = biquad_filter_frames(frames3, states.hp_mem, tuple(BIQUAD_HP_A), tuple(BIQUAD_HP_B))
+        ds, w0 = decimate(torch.cat([states.input_mem, filtered.reshape(3 * w, -1)], 1), t)
+        k1_k, k1_p = pk.pitch_analysis_cuda(ds, w0, t), pk.pitch_analysis_plain(ds, w0, t)
+        windows = raw_windows(torch, ds, w0)
+        comb = lambda out: (out[0][:, 2::3], out[1][:, 2::3])
+        ok, _, msg = pitch_bars(torch, comb(k1_k), comb(k1_p),
+                                windows=lambda i: windows(i // w * (3 * w) + 3 * (i % w) + 2))
+        print(f"[17] K1 against its plain version at B={3 * w} T={t}, on the {w} combined streams: {msg}")
+        if not ok:
+            failures.append("K1 disagrees with its plain version on the generator's combined streams")
+        other = torch.arange(3 * w, device=dev) % 3 != 2
+        to_flat = lambda i: i // (2 * w) * (3 * w) + i % (2 * w) // 2 * 3 + i % 2  # (T, 2w) -> (T, 3w)
+        lanes_k, lanes_p = (out[0][:, other].reshape(-1, out[0].shape[-1]) for out in (k1_k, k1_p))
+        step = (k1_k[1][:, other] - k1_p[1][:, other]).abs().reshape(-1)
+        rel = ((lanes_k - lanes_p).abs() / (lanes_p.abs().amax(-1, keepdim=True) + 1.0)).amax(-1)
+        loud_of = lambda i: windows(to_flat(i)).abs().amax(-1) >= 1.0
+        big = torch.nonzero(step > 2)[:, 0]
+        big = big[loud_of(big)]
+        past = torch.nonzero(~(rel <= 5e-3) & (step <= 2))[:, 0]  # NaN rows too
+        past = past[loud_of(past)]
+        e_k = e_p = torch.zeros(0, device=dev, dtype=torch.float64)
+        if len(past):
+            c64, _ = pitch_chain(windows(to_flat(past)).double())
+            s64 = c64.abs().amax(-1) + 1.0
+            e_k, e_p = (((lanes[past].double() - c64).abs().amax(-1) / s64) for lanes in (lanes_k, lanes_p))
+        off_k, off_p = int((e_k > 5e-3).sum()), int((e_p > 5e-3).sum())
+        worst_k, worst_p = (float(e.max()) if len(past) else 0.0 for e in (e_k, e_p))
+        rows_ok = off_k <= off_p and worst_k <= max(worst_p, 5e-3)
+        flat_big = to_flat(big)
+        coarse = fine = torch.zeros(0, device=dev)
+        if len(big):
+            coarse, fine = pitch_margins(torch, windows(flat_big))
+        ties_ok = bool((torch.minimum(coarse, fine) < NEAR_TIE).all())
+        quiet = ~loud_of(torch.arange(lanes_k.shape[0], device=dev))
+        print(f"[17] K1 on the {2 * w} clean and noise streams: {int(quiet.sum())} of {lanes_k.shape[0]} windows "
+              f"silent (their lanes: {int((quiet & (step > 0)).sum())} differ in pidx, NaN from the kernel "
+              f"{int((quiet & torch.isnan(lanes_k).any(-1)).sum())}, from the plain version "
+              f"{int((quiet & torch.isnan(lanes_p).any(-1)).sum())}); with sound: {len(big)} pidx steps over 2, "
+              f"float64 margins under {NEAR_TIE:g}: {ties_ok}; {len(past)} rows where the two part by over the "
+              f"5e-3 lane bar: off the float64 chain by over it, kernel {off_k} rows, plain {off_p}; at worst "
+              f"kernel {worst_k:.3g}, plain {worst_p:.3g}: {rows_ok}")
+        for f, a, b in zip(to_flat(past).tolist(), e_k.tolist(), e_p.tolist()):
+            print(f"      window {f}: past the lane bar; off the float64 chain by {a:.3g} (kernel), {b:.3g} (plain) "
+                  f"of the row's scale")
+        for f, a, b, c, g in zip(flat_big.tolist(), k1_k[1].reshape(-1)[flat_big].tolist(),
+                                 k1_p[1].reshape(-1)[flat_big].tolist(), coarse.tolist(), fine.tolist()):
+            print(f"      window {f}: pidx {a} against {b}; float64 margins coarse {c:.3g}, fine {g:.3g}")
+        if not (rows_ok and ties_ok):
+            failures.append("K1 disagrees with its plain version on the generator's clean and noise streams")
+        del lanes_k, lanes_p
+
+        ex_ok = torch.allclose(ex_k, ex_p, rtol=1e-6, atol=1e-12)
+        sil_ok = torch.equal(sil_k, sil_p)
+        d = (feats_k - feats_p).abs().amax(-1)  # (w, T)
+        parted = torch.nonzero((d > GEN_FEAT_BAR).any(1))[:, 0].tolist()
+        print(f"[17] the chunk through the kernels against the plain versions: ex (3w, T, 22) max abs "
+              f"{float((ex_k - ex_p).abs().max()):.3g}, within 1e-6 relative {ex_ok}; silence equal {sil_ok}; "
+              f"features (w, T, 42) max abs {float(d.max()):.3g}, {len(parted)} of {w} combined streams part "
+              f"by over {GEN_FEAT_BAR:g} (at most {GEN_FLIP_STREAMS}, each at a pitch decision)")
+        for j in parted:
+            f0 = int(torch.nonzero(d[j] > GEN_FEAT_BAR)[0, 0])
+            s = 3 * j + 2
+            period = lambda f: int(round(float(f[j, f0, 40]) * 100 + 300))
+            flips = torch.nonzero(k1_k[1][: f0 + 1, s] != k1_p[1][: f0 + 1, s])[:, 0]
+            line = (f"[17]   combined stream {j}: features part at frame {f0}, period {period(feats_k)} "
+                    f"against {period(feats_p)}")
+            if len(flips):
+                coarse, fine = pitch_margins(torch, windows(flips * (3 * w) + s))
+                line += "; K1's pidx differs at frame " + ", ".join(
+                    f"{int(f)} ({int(k1_k[1][f, s])} against {int(k1_p[1][f, s])}; float64 margins coarse "
+                    f"{float(c):.3g}, fine {float(g):.3g})" for f, c, g in zip(flips, coarse, fine))
+            else:
+                line += "; K1's pidx agrees up to it (the octave removal's choice on lanes within K1's bar)"
+            print(line)
+        if not (ex_ok and sil_ok and len(parted) <= GEN_FLIP_STREAMS):
+            failures.append("the generator chunk through the kernels misses its bars against the plain versions")
+        del frames, frames3, filtered, ds, w0, k1_k, k1_p, feats_k, feats_p, ex_k, ex_p
+
+        # ---- generator throughput ----
+        gen = dict(workers=w, chunk=t, device=dev)
+        td.generate(voices, noises, w * t, seed=99, **gen)  # warm-up at the same shape
+        reset_counts()
+        timing = {}
+        t0 = time.perf_counter()
+        data = td.generate(voices, noises, GEN_ROWS, seed=1, timing=timing, **gen)
+        wall = time.perf_counter() - t0
+        gen_counts = counts()
+        print(f"[17] generate {GEN_ROWS} rows, workers={w} chunk={t}: {wall:.2f} s wall, "
+              f"{GEN_ROWS / wall:,.0f} rows/s; device_s {timing['device_s']:.2f}, host_s {timing['host_s']:.2f}; "
+              f"launches K1 {gen_counts['K1']}, K6 {gen_counts['K6']} ({card})")
+        if data.shape != (GEN_ROWS, 87) or not np.isfinite(data).all():
+            failures.append("the generator's rows are not finite or have the wrong shape")
+        if gen_counts["K1"] == 0 or gen_counts["K6"] == 0:
+            failures.append("the generator did not launch K1 and K6")
+
+        # ---- the trainer at full width ----
+        n_seq = GEN_ROWS // TRAIN_WINDOW
+        rows = data[: n_seq * TRAIN_WINDOW].reshape(n_seq, TRAIN_WINDOW, -1)
+        arrays = {"features": rows[..., :42], "gains": rows[..., 42:64], "vad": rows[..., 86:]}
+        arrays = {k: np.ascontiguousarray(v) for k, v in arrays.items()}
+        gb, gt = GRAD_SHAPE
+        model_cpu = init_train_params(torch.Generator().manual_seed(17))
+        model_dev = copy.deepcopy(model_cpu).to(dev)
+        res = {}
+        for name, model, where in (("cpu", model_cpu, "cpu"), ("card", model_dev, dev)):
+            x = {k: torch.as_tensor(v[:gb, :gt], device=where) for k, v in arrays.items()}
+            g, v = sequence_forward(model, x["features"])
+            (total_loss(x["gains"], g, x["vad"], v) + l2_regularization(model)).backward()
+            res[name] = (g.detach().cpu(), v.detach().cpu(),
+                         {n: p.grad.cpu() for n, p in model.named_parameters()})
+        fwd_err = max(float((a - b).abs().max()) for a, b in zip(res["cpu"][:2], res["card"][:2]))
+        grad_rel = {n: float((res["card"][2][n] - gc).abs().max() / gc.abs().max().clamp(min=1e-30))
+                    for n, gc in res["cpu"][2].items()}
+        worst = max(grad_rel, key=grad_rel.get)
+        print(f"[17] sequence_forward and the loss's gradient at B={gb} T={gt}, the card against the CPU: "
+              f"gains/vad max abs {fwd_err:.3g} (bar 1e-5); gradient max abs over the leaf's max, worst "
+              f"{grad_rel[worst]:.3g} ({worst}; bar 1e-4)")
+        if not (fwd_err <= 1e-5 and grad_rel[worst] <= 1e-4):
+            failures.append("the trainer on the card disagrees with the CPU")
+
+        fit_kw = dict(batch_size=TRAIN_BATCH, seed=17, log_every=10 ** 6, device=dev)
+        fit(*arrays.values(), epochs=1, **fit_kw)  # warm-up step
+        history = []
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        params = fit(*arrays.values(), epochs=TRAIN_STEPS, history=history, **fit_kw)
+        end.record()
+        end.synchronize()
+        step_ms = start.elapsed_time(end) / len(history)
+        losses = [l for _, l in history]
+        clip = max(float(np.abs(a).max()) for layer in params.values() for a in layer.values())
+        # the device operations of one step, from the profiler
+        model = init_train_params(torch.Generator().manual_seed(17)).to(dev)
+        opt = make_optimizer(model)
+        on_dev = {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
+        step = lambda: train_step_indexed(model, opt, on_dev, torch.arange(TRAIN_BATCH, device=dev),
+                                          torch.ones(n_seq, device=dev))
+        step()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        dev_events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        launches = sum(e.count for e in dev_events)
+        kernels = sum(e.count for e in dev_events if not e.key.startswith(("Memcpy", "Memset")))
+        print(f"[17] fit at batch {TRAIN_BATCH} x {TRAIN_WINDOW} on {n_seq} sequences: {step_ms:.1f} ms a step "
+              f"(CUDA events around fit of {len(history)} steps after a warm-up step: init, upload and "
+              f"readback included); device operations a step (torch.profiler) {launches or 'not traced'}, "
+              f"{kernels} of them kernels; losses {', '.join(f'{l:.4f}' for l in losses)}; largest |weight| "
+              f"{clip:.4f} ({card})")
+        if len(history) != TRAIN_STEPS or not np.all(np.isfinite(losses)) or clip > WEIGHT_CLIP:
+            failures.append("the trainer's losses are not finite or a weight passed the clip")
+
+        # ---- export and serve ----
+        blob = export_model(params).to_bytes()
+        served = nt.RnnModel.from_bytes(blob)
+        mix_rng = np.random.RandomState(12345)
+        clean = ts.synth_voice(mix_rng, seconds=SERVE_SECONDS)
+        noise = ts.synth_noise(mix_rng, "pink", seconds=SERVE_SECONDS)
+        noisy = (clean + np.sqrt(np.dot(clean, clean) / (np.dot(noise, noise) * 10 ** 0.5)) * noise)
+        noisy = noisy.astype(np.float32)
+        reset_counts()
+        out_card = nt.denoise_audio(noisy, served, device=dev)
+        serve_counts = counts()
+        out_cpu = nt.denoise_audio(noisy, served, device="cpu")
+        got, want = (np.clip(np.rint(o.astype(np.float64)), -32768, 32767) for o in (out_card, out_cpu))
+        rel = float(np.sum((want - got) ** 2) / np.sum(got ** 2))
+        worst_units = float(np.abs(want - got).max())
+        print(f"[17] exported {len(blob)} bytes; denoise_audio of a {SERVE_SECONDS:g} s synthetic mix on the card "
+              f"against the CPU: rel {rel:.3g}, max {worst_units:.0f} units; launches K1 {serve_counts['K1']}, "
+              f"K2 {serve_counts['K2']}")
+        if not (rel < 1e-4 and worst_units <= 2):
+            failures.append("the exported model on the card misses the golden bars against the CPU")
+        if serve_counts["K1"] == 0 or serve_counts["K2"] == 0:
+            failures.append("the exported model's inference did not launch K1 and K2")
+    if failures:
+        raise RuntimeError("phase 17: " + "; ".join(failures))
 
 
 def main() -> int:
@@ -609,14 +911,7 @@ def main() -> int:
         print(f"[6] {name} at B={b6} T={t6}: kernel {times[name][0]:.2f} ms, "
               f"plain {times[name][1]:.2f} ms ({card})")
 
-    def k1_windows(idx):
-        """Raw windows of flat (t, b) indices of the phase-6 input."""
-        t, b = idx // b6, idx % b6
-        w = ds6[b[:, None], DS_STEP * (t + 1)[:, None] + torch.arange(N_DS, device=dev)]
-        w[:, 0] = w06[t, b]
-        return w
-
-    ok, k1_err, msg = pitch_bars(torch, k1_kern(), k1_plain(), windows=k1_windows)
+    ok, k1_err, msg = pitch_bars(torch, k1_kern(), k1_plain(), windows=raw_windows(torch, ds6, w06))
     print(f"[6] K1 against its plain version at B={b6} T={t6}: {msg}")
     if not ok:
         raise RuntimeError("K1 disagrees with its plain version at the main path's shape")
@@ -986,6 +1281,9 @@ def main() -> int:
     print(f"[16] K1 stage costs at B={b6} T={t6} (production {base16[0]:.3f} ms, {base16[1]:.3f} ms "
           f"after the stubs; skip=() bit-equal): "
           + ", ".join(f"{k} {c:+.3f} ms" for k, c in cost16.items()) + f" ({card})")
+
+    # ---- 17. the training path ----------------------------------------------------------------
+    training_phase(torch, dev, card, reset_counts, counts)
 
     band_nnz = int((BAND_CORR_MATRIX != 0).sum())
     bounds = kernel_bounds(b6, t6, b6 * t6, 2 * b6 * t6, b6 * t6, band_nnz)

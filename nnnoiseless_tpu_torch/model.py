@@ -204,6 +204,14 @@ def _parse(data: np.ndarray) -> RnnModel:
     return RnnModel(params, ModelMeta(m_id, m_vg, m_ng, m_dg, m_do, m_vo))
 
 
+def quantize_weights(w: np.ndarray) -> np.ndarray:
+    """float weights -> int8 values, the dump_rnn.py rule:
+    clip(round(256*w), -128, 127)."""
+    # np.round rounds half to even, as the reference's Python round() does
+    # on floats.
+    return np.clip(np.round(256.0 * np.asarray(w, dtype=np.float64)), -128, 127).astype(np.int8)
+
+
 def params_from_numpy(params: dict, device) -> dict:
     """The JAX package's ``RnnModel.params`` (nested dict of numpy arrays)
     as the port's module state: a flat ``state_dict`` of float32 tensors on

@@ -93,17 +93,23 @@ class FramePre(NamedTuple):
     ceps: Optional[torch.Tensor] = None  # (T, B, 22) cepstrum, offsets applied
 
 
+def init_feature_state(batch: int, device) -> FeatureState:
+    """A zeroed analysis state for ``batch`` streams on ``device``."""
+    z = lambda *shape: torch.zeros((batch,) + shape, dtype=torch.float32, device=device)
+    return FeatureState(
+        input_mem=z(PITCH_BUF_SIZE),
+        hp_mem=z(2),
+        cepstral_mem=z(CEPS_MEM, NB_BANDS),
+        pitch_period=torch.zeros((batch,), dtype=torch.int32, device=device),
+        pitch_gain=z(),
+    )
+
+
 def init_carry(meta: ModelMeta, batch: int, device) -> DenoiseCarry:
     """A zeroed carry for ``batch`` streams on ``device``."""
     z = lambda *shape: torch.zeros((batch,) + shape, dtype=torch.float32, device=device)
     return DenoiseCarry(
-        feat=FeatureState(
-            input_mem=z(PITCH_BUF_SIZE),
-            hp_mem=z(2),
-            cepstral_mem=z(CEPS_MEM, NB_BANDS),
-            pitch_period=torch.zeros((batch,), dtype=torch.int32, device=device),
-            pitch_gain=z(),
-        ),
+        feat=init_feature_state(batch, device),
         synthesis_mem=z(FRAME_SIZE),
         rnn=RnnState(
             z(meta.vad_gru.nb_neurons),

@@ -1,0 +1,175 @@
+"""Float training-mode network (the Keras model of train/rnn_train.py:65-77).
+
+Topology (all GRUs ``reset_after=False``, recurrent activation sigmoid)::
+
+    f(42) -> Dense24 tanh -> GRU24 tanh -> Dense1 sigmoid   (vad)
+    [d, vad_h, f](90)  -> GRU48 relu
+    [vad_h, noise_h, f](114) -> GRU96 tanh -> Dense22 sigmoid (gains)
+
+The counterpart of ``nnnoiseless_tpu/training/network.py``.  Differences
+from the inference path (ops/rnn.py): float32 weights with true
+tanh/sigmoid/relu (training wants smooth gradients; the 201-entry tansig
+table is an inference-time artifact), and a loop over the time axis of
+whole sequences.  The weights keep the serialized layout, ``(in, out)`` for
+``x @ w`` with the update/reset/candidate gates at column offsets 0/n/2n,
+so quantization gives a loadable ``.rnn``.
+
+The cell is written out rather than taken from ``torch.nn.GRU``/cuDNN:
+those apply the reset gate after the recurrent product,
+``r * (h W_hn + b_hn)``, where Keras ``reset_after=False`` applies it
+before, ``(r * h) @ wr[:, 2n:]``.  That is another function, and its
+weights would not export.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..model import (
+    GRU_LAYERS,
+    LAYERS,
+    RELU,
+    SIGMOID,
+    TANH,
+    LayerMeta,
+    ModelMeta,
+    RnnModel,
+    quantize_weights,
+)
+
+DEFAULT_META = ModelMeta(
+    input_dense=LayerMeta(42, 24, TANH),
+    vad_gru=LayerMeta(24, 24, TANH),
+    noise_gru=LayerMeta(90, 48, RELU),
+    denoise_gru=LayerMeta(114, 96, TANH),
+    denoise_output=LayerMeta(96, 22, SIGMOID),
+    vad_output=LayerMeta(24, 1, SIGMOID),
+)
+
+WEIGHT_CLIP = 0.499  # rnn_train.py:62 WeightClip constraint
+
+
+def _layer_shapes(layer: str, m: LayerMeta) -> dict:
+    if layer in GRU_LAYERS:
+        n = m.nb_neurons
+        return {"wi": (m.nb_inputs, 3 * n), "wr": (n, 3 * n), "b": (3 * n,)}
+    return {"w": (m.nb_inputs, m.nb_neurons), "b": (m.nb_neurons,)}
+
+
+class TrainableModel(nn.Module):
+    """The float parameters, one ``ParameterDict`` a layer, so that the
+    state_dict keys are ``"<layer>.<name>"`` (``input_dense.w``,
+    ``vad_gru.wi``, ...) as ``model.params_from_numpy`` makes them from the
+    JAX package's params.  Zero until :func:`init_train_params` or
+    ``load_state_dict`` fills them."""
+
+    def __init__(self, meta: ModelMeta = DEFAULT_META, device=None):
+        super().__init__()
+        self.meta = meta
+        for layer in LAYERS:
+            shapes = _layer_shapes(layer, getattr(meta, layer))
+            setattr(self, layer, nn.ParameterDict(
+                {k: nn.Parameter(torch.zeros(s, device=device)) for k, s in shapes.items()}
+            ))
+
+    def forward(self, features: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        return sequence_forward(self, features)
+
+
+def init_train_params(generator: torch.Generator, meta: ModelMeta = DEFAULT_META) -> TrainableModel:
+    """Keras-style init on the CPU, drawn from ``generator``: glorot-uniform
+    kernels (limit sqrt(6 / (fan_in + fan_out))), orthogonal recurrent
+    kernels (an (n, 3n) matrix with orthonormal rows), zero biases."""
+    model = TrainableModel(meta)
+    with torch.no_grad():
+        for layer in LAYERS:
+            for name, p in getattr(model, layer).items():
+                if name == "wr":
+                    nn.init.orthogonal_(p, generator=generator)
+                elif name != "b":
+                    limit = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
+                    nn.init.uniform_(p, -limit, limit, generator=generator)
+    return model
+
+
+@torch.no_grad()
+def clip_params(model: TrainableModel) -> None:
+    """Apply the Keras WeightClip(0.499) constraint to every tensor, biases
+    too, in place."""
+    for p in model.parameters():
+        p.clamp_(-WEIGHT_CLIP, WEIGHT_CLIP)
+
+
+def numpy_params(model: TrainableModel) -> dict:
+    """The parameters as numpy arrays in the JAX package's layout:
+    ``{layer: {name: array}}``."""
+    return {
+        layer: {k: v.detach().cpu().numpy().copy() for k, v in getattr(model, layer).items()}
+        for layer in LAYERS
+    }
+
+
+def _act(x, activation: int):
+    if activation == TANH:
+        return torch.tanh(x)
+    if activation == SIGMOID:
+        return torch.sigmoid(x)
+    if activation == RELU:
+        return torch.relu(x)
+    raise ValueError(activation)
+
+
+def _dense(layer, m: LayerMeta, x):
+    return _act(x @ layer["w"] + layer["b"], m.activation)
+
+
+def _gru_cell(layer, m: LayerMeta, h, x):
+    """Keras reset_after=False GRU cell (float)."""
+    n = m.nb_neurons
+    xw = x @ layer["wi"] + layer["b"]
+    hzr = h @ layer["wr"][:, : 2 * n]
+    z = torch.sigmoid(xw[:, :n] + hzr[:, :n])
+    r = torch.sigmoid(xw[:, n : 2 * n] + hzr[:, n:])
+    hh = _act(xw[:, 2 * n :] + (r * h) @ layer["wr"][:, 2 * n :], m.activation)
+    return z * h + (1.0 - z) * hh
+
+
+def sequence_forward(model: TrainableModel, features: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward a batch of sequences: features (B, T, 42) -> (gains (B, T, 22),
+    vad (B, T, 1)), a loop over time with the batch inside each step."""
+    meta = model.meta
+    b, t, _ = features.shape
+    h_vad = features.new_zeros((b, meta.vad_gru.nb_neurons))
+    h_noise = features.new_zeros((b, meta.noise_gru.nb_neurons))
+    h_den = features.new_zeros((b, meta.denoise_gru.nb_neurons))
+    gains, vads = [], []
+    for i in range(t):
+        f = features[:, i]
+        d = _dense(model.input_dense, meta.input_dense, f)
+        h_vad = _gru_cell(model.vad_gru, meta.vad_gru, h_vad, d)
+        vads.append(_dense(model.vad_output, meta.vad_output, h_vad))
+        h_noise = _gru_cell(model.noise_gru, meta.noise_gru, h_noise, torch.cat([d, h_vad, f], -1))
+        h_den = _gru_cell(model.denoise_gru, meta.denoise_gru, h_den, torch.cat([h_vad, h_noise, f], -1))
+        gains.append(_dense(model.denoise_output, meta.denoise_output, h_den))
+    return torch.stack(gains, 1), torch.stack(vads, 1)
+
+
+def export_model(params, meta: ModelMeta | None = None) -> RnnModel:
+    """Quantize float params to int8 and wrap them as a loadable RnnModel,
+    by the rule of train/dump_rnn.py: clip(round(256 w), -128, 127).
+
+    ``params``: a :class:`TrainableModel` (its meta is used), or numpy
+    params in the JAX package's layout (``meta`` defaults to DEFAULT_META).
+    """
+    if isinstance(params, nn.Module):
+        meta = meta or params.meta
+        params = numpy_params(params)
+    q = {
+        name: {k: quantize_weights(np.asarray(v)).astype(np.float32) for k, v in layer.items()}
+        for name, layer in params.items()
+    }
+    return RnnModel(q, meta or DEFAULT_META)

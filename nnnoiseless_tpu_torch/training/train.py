@@ -1,0 +1,305 @@
+"""Training loop: Adam + weight clipping on one device.
+
+The counterpart of ``nnnoiseless_tpu/training/train.py``, the equivalent of
+train/rnn_train.py (same topology, losses, loss weights, sequence length
+2000, batch 32, sample reweighting by mean gain tertile).  The dataset goes
+to the device once; each step gathers its batch there from a (B,) index
+vector (:func:`train_step_indexed`).
+
+Usage::
+
+    python -m nnnoiseless_tpu_torch.training.train --data training.h5 \
+        --epochs 20 --out weights.rnn --device cuda
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import os
+import pathlib
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..constants import NB_BANDS, NB_FEATURES
+from ..denoise import check_device
+from ..model import ModelMeta
+from .losses import l2_regularization, total_loss
+from .network import (
+    DEFAULT_META,
+    TrainableModel,
+    clip_params,
+    export_model,
+    init_train_params,
+    numpy_params,
+    sequence_forward,
+)
+
+
+def make_optimizer(model: TrainableModel, learning_rate: float = 1e-3,
+                   cosine_steps: Optional[int] = None) -> torch.optim.Adam:
+    """Adam with optax's ``adam`` defaults (b1 0.9, b2 0.999, eps 1e-8).
+
+    The learning rate lives in ``param_groups`` (optax's
+    ``inject_hyperparams``: change ``opt.param_groups[0]["lr"]`` mid-run).
+    With ``cosine_steps`` it follows ``optax.cosine_decay_schedule(
+    learning_rate, cosine_steps)`` (alpha 0) instead, set before each update
+    from the updates taken so far, so the first update uses the schedule at
+    0, as optax's does.
+    """
+    return torch.optim.Adam(
+        [{"params": list(model.parameters()), "base_lr": learning_rate, "cosine_steps": cosine_steps}],
+        lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+    )
+
+
+def updates_taken(opt: torch.optim.Adam) -> int:
+    """Adam's update count (its per-parameter ``step``), 0 before the first."""
+    state = opt.state.get(opt.param_groups[0]["params"][0], {})
+    return int(state["step"]) if "step" in state else 0
+
+
+def _apply_schedule(opt: torch.optim.Adam) -> None:
+    for group in opt.param_groups:
+        steps = group["cosine_steps"]
+        if steps is not None:
+            count = min(updates_taken(opt), steps)
+            group["lr"] = group["base_lr"] * 0.5 * (1.0 + math.cos(math.pi * count / steps))
+
+
+def train_step(model: TrainableModel, opt: torch.optim.Adam, batch: dict,
+               sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One step on a batch {features (B,T,42), gains (B,T,22), vad (B,T,1)}:
+    the loss (total_loss + l2_regularization), its gradient, the Adam
+    update, then the weight clip.  Returns the loss as a device scalar."""
+    gains_pred, vad_pred = sequence_forward(model, batch["features"])
+    loss = total_loss(batch["gains"], gains_pred, batch["vad"], vad_pred, sample_weight) \
+        + l2_regularization(model)
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    _apply_schedule(opt)
+    opt.step()
+    clip_params(model)  # Keras WeightClip(0.499) constraint
+    return loss.detach()
+
+
+def train_step_indexed(model: TrainableModel, opt: torch.optim.Adam, data: dict,
+                       idx: torch.Tensor, seq_weights: torch.Tensor) -> torch.Tensor:
+    """One step on rows ``idx`` of a dataset on the device: the batch is
+    gathered there, so only the (B,) index vector crosses per step.
+    ``data`` holds the full {features, gains, vad} tensors (sequence-major),
+    ``seq_weights`` the per-sequence sample weights."""
+    batch = {k: v.index_select(0, idx) for k, v in data.items()}
+    sw = seq_weights.index_select(0, idx)[:, None].expand(batch["vad"].shape[:2])
+    return train_step(model, opt, batch, sw)
+
+
+def compute_sample_weights(gains: np.ndarray) -> np.ndarray:
+    """Tertile reweighting by per-sequence mean gain (rnn_train.py:108-118)."""
+    y = gains.reshape(gains.shape[0], -1)
+    masked = np.ma.masked_equal(y, -1.0)
+    means = masked.mean(axis=1).filled(np.nan)
+    hi = means > 2 / 3
+    lo = means < 1 / 3
+    med = ~hi & ~lo & ~np.isnan(means)
+    total = np.sum(~np.isnan(means))
+    w = np.zeros(len(means))
+    for m in (hi, med, lo):
+        n = max(m.sum(), 1)
+        w += m * (total / n)
+    return (w / 3.0).astype(np.float32)
+
+
+def load_h5(path: str, window: int = 2000):
+    """Load the 87-column HDF5 produced by the data generator.
+
+    Layout per row: 42 features | 22 gains | 22 noise levels | 1 vad
+    (reference src/training.rs:90-94, 155-159).  Needs ``h5py``.
+    """
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        data = np.asarray(f["data"], np.float32)
+    n_seq = len(data) // window
+    data = data[: n_seq * window]
+    features = data[:, :NB_FEATURES].reshape(n_seq, window, NB_FEATURES)
+    gains = data[:, NB_FEATURES : NB_FEATURES + NB_BANDS].reshape(n_seq, window, NB_BANDS)
+    vad = data[:, NB_FEATURES + 2 * NB_BANDS :].reshape(n_seq, window, 1)
+    return features, gains, vad
+
+
+def save_checkpoint(path, model: TrainableModel, opt: torch.optim.Adam, step: int) -> pathlib.Path:
+    """Write the full training state (weights, Adam's state and settings,
+    the step) with ``torch.save`` to its own ``step_<n:08d>`` file under the
+    directory ``path`` (mid-training resume: the reference only saves final
+    weights, rnn_train.py:131-135).
+
+    Nothing else in the directory is ever touched or deleted: the state is
+    written to a hidden temporary file and renamed over this step's own
+    file, so an interrupted save cannot clobber an earlier checkpoint.
+    These checkpoints are this package's own format; it does not read the
+    JAX package's orbax checkpoints.
+    """
+    d = pathlib.Path(path).resolve()
+    d.mkdir(parents=True, exist_ok=True)
+    final = d / f"step_{step:08d}"
+    tmp = d / f".{final.name}.tmp"
+    torch.save({"step": step, "model": model.state_dict(), "optimizer": opt.state_dict()}, tmp)
+    os.replace(tmp, final)
+    return final
+
+
+def latest_checkpoint(path) -> Optional[pathlib.Path]:
+    """The newest ``step_<n>`` checkpoint under ``path``, or None."""
+    steps = sorted(pathlib.Path(path).resolve().glob("step_*"))
+    return steps[-1] if steps else None
+
+
+def restore_checkpoint(path, model: TrainableModel, opt: torch.optim.Adam) -> int:
+    """Load a checkpoint into ``model`` and ``opt``; returns its step.
+    ``path`` is one ``step_<n>`` file or a directory of them written by
+    :func:`save_checkpoint` (the newest wins).
+
+    A checkpoint resumes only under the optimizer configuration it was
+    saved with: a constant learning rate against a cosine schedule, or
+    another topology, raises ValueError instead of mis-restoring.  Adam's
+    settings, the learning rate and the schedule come from the checkpoint.
+    """
+    p = pathlib.Path(path).resolve()
+    if not p.name.startswith("step_"):
+        newest = latest_checkpoint(p)
+        if newest is None:
+            raise FileNotFoundError(f"no step_* checkpoints under {p}")
+        p = newest
+    ckpt = torch.load(p, map_location=next(model.parameters()).device, weights_only=True)
+    saved = [g.get("cosine_steps") is None for g in ckpt["optimizer"]["param_groups"]]
+    want = [g["cosine_steps"] is None for g in opt.param_groups]
+    if saved != want:
+        raise ValueError(
+            f"checkpoint {p} was saved with another learning-rate schedule (constant: {saved}, "
+            f"expected {want}); resume with the settings it was written under"
+        )
+    try:
+        model.load_state_dict(ckpt["model"])
+        opt.load_state_dict(ckpt["optimizer"])
+    except (KeyError, RuntimeError, ValueError) as e:
+        raise ValueError(f"checkpoint {p} does not match the current training configuration: {e}") from e
+    return int(ckpt["step"])
+
+
+def fit(
+    features: np.ndarray,
+    gains: np.ndarray,
+    vad: np.ndarray,
+    *,
+    epochs: int = 20,
+    batch_size: int = 32,
+    learning_rate: float = 1e-3,
+    seed: int = 0,
+    meta: ModelMeta = DEFAULT_META,
+    log_every: int = 10,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 500,
+    resume_from: Optional[str] = None,
+    lr_schedule: Optional[str] = None,
+    total_steps: Optional[int] = None,
+    history: Optional[list] = None,
+    device="cuda",
+) -> dict:
+    """Train on ``device`` and return float params as numpy arrays in the
+    JAX package's layout.
+
+    ``lr_schedule``: None (constant) or "cosine" (cosine decay to 0 over
+    ``total_steps``, by default the whole run).  ``history`` (if given)
+    collects (step, loss) pairs, read back from the device once at the end.
+    A run resumed from a checkpoint takes its epochs again from the saved
+    step.  The JAX function's ``mesh`` (data parallelism over devices) is
+    not here yet: this trains on one device.
+    """
+    device = check_device(device)
+    if lr_schedule == "cosine":
+        cosine_steps = total_steps or epochs * max(len(features) // batch_size, 1)
+    elif lr_schedule is None:
+        cosine_steps = None
+    else:
+        raise ValueError(f"unknown lr_schedule {lr_schedule!r}")
+    model = init_train_params(torch.Generator().manual_seed(seed), meta).to(device)
+    opt = make_optimizer(model, learning_rate, cosine_steps)
+    step = 0
+    if resume_from:
+        step = restore_checkpoint(resume_from, model, opt)
+        print(f"resumed from {resume_from} at step {step}")
+    seq_w = torch.as_tensor(compute_sample_weights(gains), device=device)
+    n = len(features)
+    rng = np.random.RandomState(seed)
+    data = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+            for k, v in (("features", features), ("gains", gains), ("vad", vad))}
+
+    pending: list = []
+    done = 0
+    for epoch in range(epochs):
+        perm = rng.permutation(n)
+        for i in range(0, n - batch_size + 1, batch_size):
+            idx = torch.as_tensor(perm[i : i + batch_size], device=device)
+            loss = train_step_indexed(model, opt, data, idx, seq_w)
+            if done % log_every == 0:
+                print(f"epoch {epoch} step {done} loss {float(loss):.5f}")
+            if history is not None:
+                pending.append((done, loss))
+            done += 1
+            step += 1
+            if checkpoint_dir and done % checkpoint_every == 0:
+                save_checkpoint(checkpoint_dir, model, opt, step)
+    if history is not None and pending:
+        losses = torch.stack([l for _, l in pending]).cpu().numpy()
+        history.extend((s, float(l)) for (s, _), l in zip(pending, losses))
+    if checkpoint_dir:
+        save_checkpoint(checkpoint_dir, model, opt, step)
+    return numpy_params(model)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Train a denoise model")
+    ap.add_argument("--data", required=True, help="training.h5 (87-col schema)")
+    ap.add_argument("--epochs", type=int, default=20)
+    ap.add_argument("--batch-size", type=int, default=32)
+    ap.add_argument("--window", type=int, default=2000)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--out", default="weights.rnn")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--checkpoint-dir", default=None, help="checkpoint directory (torch.save)")
+    ap.add_argument("--checkpoint-every", type=int, default=500)
+    ap.add_argument("--resume", default=None, help="checkpoint dir to resume from")
+    ap.add_argument(
+        "--lr-schedule", default=None, choices=["cosine"],
+        help="cosine-decay the lr to 0 over the run (default: constant)",
+    )
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    check_device(args.device)
+    features, gains, vad = load_h5(args.data, args.window)
+    print(f"{len(features)} sequences of {args.window} frames")
+    params = fit(
+        features,
+        gains,
+        vad,
+        epochs=args.epochs,
+        batch_size=args.batch_size,
+        learning_rate=args.lr,
+        seed=args.seed,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        resume_from=args.resume,
+        lr_schedule=args.lr_schedule,
+        device=args.device,
+    )
+    with open(args.out, "wb") as f:
+        f.write(export_model(params).to_bytes())
+    print(f"wrote {args.out}")
+
+
+if __name__ == "__main__":
+    main()

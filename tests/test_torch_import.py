@@ -20,12 +20,15 @@ from nnnoiseless_tpu_torch.ops.rnn import RnnState, rnn_step
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 _PROBE = """
+import contextlib
+import io
 import sys
 import numpy as np
 import nnnoiseless_tpu_torch as nt
 from nnnoiseless_tpu_torch import audio_io, chunk, cli, flags, native, pipeline, signal
 from nnnoiseless_tpu_torch.ops import frame_kernel as fk, pitch_kernel as pk, rnn_kernel as rk, window
-from nnnoiseless_tpu_torch.tools import attrib, corr, profile, trace
+from nnnoiseless_tpu_torch.tools import attrib, corr, datagen_bench, profile, trace
+from nnnoiseless_tpu_torch.training import data, losses, network, train
 assert "jax" not in sys.modules, "importing the port loaded jax"
 raw = np.fromfile("tests/data/testing.raw", "<i2").astype(np.float32)[: 6 * 480]
 for fused in (True, False):
@@ -36,7 +39,12 @@ out, vad = nt.DenoiseState(device="cpu").process_frame(raw[:480])
 assert out.shape == (480,) and np.isfinite(out).all()
 assert len(list(nt.DenoiseSignal(raw / 32768.0, latency_frames=2, device="cpu"))) == 5 * 480
 assert cli.main(["tests/data/testing.raw", "/dev/null", "--device", "cpu"]) == 0
-counts = (pk.launches, pk.stacked_launches, fk.launches, fk.cand_launches, rk.launches, window.launches)
+feats = np.random.RandomState(0).randn(2, 6, 42).astype(np.float32)
+with contextlib.redirect_stdout(io.StringIO()):  # fit logs its first step
+    params = train.fit(feats, np.full((2, 6, 22), 0.5, np.float32), np.ones((2, 6, 1), np.float32), epochs=1,
+                       batch_size=2, device="cpu")
+assert len(network.export_model(params).to_bytes()) == 87521
+counts =(pk.launches, pk.stacked_launches, fk.launches, fk.cand_launches, rk.launches, window.launches)
 assert counts == (0,) * 6, counts
 assert "jax" not in sys.modules, "running the port loaded jax"
 print("ok")

@@ -10,8 +10,8 @@ Usage:
     python -m nnnoiseless_tpu_torch.tools.datagen_bench [--rows N]
         [--workers W] [--chunk C] [--workdir DIR] [--device cuda|cpu]
 
-The corpus (by default 18 synthetic voices and 12 synthetic noises, 30 s
-each, from examples/train_synthetic.py) is built once in --workdir and
+The corpus (18 synthetic voices and 12 synthetic noises, 30 s each, from
+examples/train_synthetic.py) is built once in --workdir and
 reused across runs.  A warm-up at the same (workers, chunk) shape, which
 builds the kernels, is left out of the timing.  Prints one JSON object.
 """
@@ -37,31 +37,26 @@ def _load_synth():
     return ts
 
 
-def build_corpus(workdir: str, voices: int = 18, noises: int = 12, seconds: float = 30.0):
-    """WAVs of the synthetic corpus in ``workdir`` (kept if present): the
-    first 6 voices ``synth_voice``, the rest ``synth_voice_varied``; the
-    first 5 noises white, pink, band, white, pink, the rest
-    ``synth_noise_varied``.  Returns (voice paths, noise paths)."""
+def build_corpus(workdir: str):
+    """WAVs of the synthetic corpus in ``workdir`` (kept if present): 18
+    voices of 30 s, the first 6 ``synth_voice``, the rest
+    ``synth_voice_varied``; 12 noises of 30 s, the first 5 white, pink,
+    band, white, pink, the rest ``synth_noise_varied``.  Returns (voice
+    paths, noise paths)."""
     ts = _load_synth()
     os.makedirs(workdir, exist_ok=True)
     rng = np.random.RandomState(0)
     sig_paths, noise_paths = [], []
-    for i in range(voices):
-        p = os.path.join(workdir, f"voice{i}_{seconds:g}s.wav")
+    for i in range(18):
+        p = os.path.join(workdir, f"voice{i}.wav")
         if not os.path.exists(p):
-            make = ts.synth_voice if i < 6 else ts.synth_voice_varied
-            ts.write_wav(p, make(rng, seconds=seconds))
+            ts.write_wav(p, ts.synth_voice(rng) if i < 6 else ts.synth_voice_varied(rng))
         sig_paths.append(p)
     kinds = ["white", "pink", "band", "white", "pink"]
-    for i in range(noises):
-        p = os.path.join(workdir, f"noise{i}_{seconds:g}s.wav")
+    for i in range(12):
+        p = os.path.join(workdir, f"noise{i}.wav")
         if not os.path.exists(p):
-            ts.write_wav(
-                p,
-                ts.synth_noise(rng, kinds[i], seconds=seconds)
-                if i < 5
-                else ts.synth_noise_varied(rng, seconds=seconds),
-            )
+            ts.write_wav(p, ts.synth_noise(rng, kinds[i]) if i < 5 else ts.synth_noise_varied(rng))
         noise_paths.append(p)
     return sig_paths, noise_paths
 
@@ -72,9 +67,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--workers", type=int, default=96)
     ap.add_argument("--chunk", type=int, default=625)
     ap.add_argument("--workdir", default=os.path.join(tempfile.gettempdir(), "nnt_datagen_bench"))
-    ap.add_argument("--voices", type=int, default=18)
-    ap.add_argument("--noises", type=int, default=12)
-    ap.add_argument("--seconds", type=float, default=30.0, help="length of each corpus file")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -84,7 +76,7 @@ def main(argv=None) -> dict:
     from ..training.data import generate
 
     device = check_device(args.device)
-    sig, noise = build_corpus(args.workdir, args.voices, args.noises, args.seconds)
+    sig, noise = build_corpus(args.workdir)
 
     generate(sig, noise, args.workers * args.chunk, seed=99, workers=args.workers,
              chunk=args.chunk, device=device)
@@ -98,7 +90,7 @@ def main(argv=None) -> dict:
         raise RuntimeError(f"generate gave {data.shape} rows with non-finite values or of the wrong width")
     result = {
         "rows": args.rows, "workers": args.workers, "chunk": args.chunk,
-        "voices": len(sig), "noises": len(noise), "seconds": args.seconds,
+        "voices": len(sig), "noises": len(noise),
         "wall_s": wall, "device_s": timing["device_s"], "host_s": timing["host_s"],
         "rows_per_s": args.rows / wall,
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",

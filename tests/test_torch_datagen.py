@@ -171,11 +171,14 @@ def test_generate_schema_and_h5_roundtrip(rows, tmp_path):
     np.testing.assert_array_equal(feats.reshape(-1, NB_FEATURES), data[:, :F])
 
 
-def test_datagen_bench_prints_json(tmp_path, capsys):
+def test_datagen_bench_prints_json(corpus, tmp_path, capsys, monkeypatch):
+    """The tool at a tiny size: its 30-file corpus is swapped for the
+    fixture's four files."""
     from nnnoiseless_tpu_torch.tools import datagen_bench
 
-    datagen_bench.main(["--rows", "90", "--workers", "2", "--chunk", "20", "--voices", "2", "--noises", "2",
-                        "--seconds", "1", "--workdir", str(tmp_path), "--device", "cpu"])
+    monkeypatch.setattr(datagen_bench, "build_corpus", lambda workdir: _paths(corpus))
+    datagen_bench.main(["--rows", "90", "--workers", "2", "--chunk", "20", "--workdir", str(tmp_path),
+                        "--device", "cpu"])
     result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert result["rows"] == 90 and result["device"] == "cpu"
     assert result["rows_per_s"] > 0 and result["device_s"] > 0 and result["host_s"] > 0

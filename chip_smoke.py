@@ -75,7 +75,20 @@
    batch 32 x 2000 (60 sequences of the rows), a warm-up step and 5 timed
    (ms a step, device operations a step by torch.profiler, the losses, the
    weight clip); the int8 export through denoise_audio (K1, K2) on a 2 s
-   mix against the CPU under the golden bars.
+   mix against the CPU under the golden bars;
+18. the multi-device split (nnnoiseless_tpu_torch.parallel) at phase 6's
+   size, B=4096, T=100, on phase 6's input: sharded_process_frames over
+   make_mesh() (every card present) and over 2 and 4 entries on cuda:0,
+   each against StreamBatch.process_tensor from the same zero carry for
+   two chunks (the first from host memory, the second from the returned
+   sharded carry) under tests/test_parallel.py's bars (out 1.0 i16 unit,
+   vad 1e-3; bit-equality printed), K1 and K2 once a shard a chunk, every
+   carry slice on its entry's device, and the time a chunk of each mesh
+   beside the unsharded chunk's, timed before and after them (CUDA
+   events, the mean of 3 after a warm-up); then fit at batch 32 x 2000
+   for 2 steps over a 1-rank NCCL DeviceMesh (a FileStore, no network)
+   against fit with mesh=None from the same seed: parameters within 1e-6
+   of each leaf's scale (bit-equality printed), ms a step of both.
 
 Any failure exits non-zero before the last line.  The last two lines are a
 JSON object with each kernel's launches, error, times and bound, and
@@ -153,6 +166,12 @@ GRAD_SHAPE = (4, 200)
 GEN_FEAT_BAR = 1e-4  # the CPU test's feature bar against the JAX generator
 GEN_FLIP_STREAMS = 2  # combined streams whose features may part at a pitch decision flip
 SERVE_SECONDS = 2.0
+# phase 18: the meshes beyond make_mesh()'s (entries on cuda:0), the split's
+# bars (tests/test_parallel.py's), the data-parallel trainer's steps and bar
+MESH_SHARDS = (2, 4)
+SPLIT_OUT_BAR, SPLIT_VAD_BAR = 1.0, 1e-3
+DP_STEPS = 2
+DP_BAR = 1e-6  # of each leaf's largest magnitude
 
 
 def fft960_flops() -> int:
@@ -704,6 +723,150 @@ def training_phase(torch, dev, card: str, reset_counts, counts) -> None:
         raise RuntimeError("phase 17: " + "; ".join(failures))
 
 
+def _leaves(tree) -> list:
+    if hasattr(tree, "_fields"):
+        return [leaf for sub in tree for leaf in _leaves(sub)]
+    return [tree]
+
+
+def _map_leaves(fn, tree):
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_map_leaves(fn, sub) for sub in tree))
+    return fn(tree)
+
+
+def parallel_phase(torch, dev, card: str, engine, big, reset_counts, counts) -> None:
+    """Phase 18, the multi-device split and data-parallel fit (see the
+    module docstring).  ``big``: phase 6's input on the card, four chunks.
+    Raises on any failed bar, after every bar is read."""
+    import os
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import nnnoiseless_tpu_torch as nt
+    from nnnoiseless_tpu_torch.chunk import decimate, precompute_chunk
+    from nnnoiseless_tpu_torch.ops import frame_kernel as fk
+    from nnnoiseless_tpu_torch.ops import pitch_kernel as pk
+    from nnnoiseless_tpu_torch.ops.biquad import biquad_filter_frames
+    from nnnoiseless_tpu_torch.parallel import make_mesh, shard_batch, sharded_process_frames
+    from nnnoiseless_tpu_torch.tables import BIQUAD_HP_A, BIQUAD_HP_B
+    from nnnoiseless_tpu_torch.training.train import fit
+
+    b, t = REAL_SHAPE
+    chunk = lambda c: big[:, c * t : (c + 1) * t]
+    failures = []
+    ref = nt.StreamBatch(b, engine, device=dev)
+    want = [ref.process_tensor(chunk(c)) for c in (0, 1)]
+    host0 = chunk(0).cpu().numpy()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def chunk_ms(run) -> float:
+        """Mean ms of TIMED_CHUNKS chunks of ``run(c)`` after a warm-up one."""
+        run(0)
+        torch.cuda.synchronize()
+        start.record()
+        for c in range(1, TIMED_CHUNKS + 1):
+            run(c)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / TIMED_CHUNKS
+
+    unsharded = lambda c: ref.process_tensor(chunk(c))
+    base_ms = [chunk_ms(unsharded)]
+    for mesh in [make_mesh()] + [make_mesh([dev] * n) for n in MESH_SHARDS]:
+        n = mesh.size
+        carry = shard_batch(nt.init_batch_carry(engine.model.meta, b, dev), mesh)
+        errs, launches = [], []
+        for frames, (want_out, want_vad) in zip((host0, chunk(1)), want):
+            reset_counts()
+            carry, out, vad = sharded_process_frames(engine.model, carry, frames, mesh)
+            torch.cuda.synchronize()
+            launches.append((counts()["K1"], counts()["K2"]))
+            errs.append((float((out - want_out).abs().max()), float((vad - want_vad).abs().max()),
+                         torch.equal(out, want_out) and torch.equal(vad, want_vad)))
+            del out, vad
+        placed = all(leaf.device == d for shard, d in zip(carry, mesh.devices) for leaf in _leaves(shard))
+        state = [carry]
+
+        def sharded(c):
+            state[0] = sharded_process_frames(engine.model, state[0], chunk(c), mesh)[0]
+
+        ms = chunk_ms(sharded)
+        print(f"[18] split over {n} entr{'y' if n == 1 else 'ies'} ({', '.join(map(str, mesh.devices))}), "
+              f"B={b} T={t}: {ms:.2f} ms a chunk; against StreamBatch, chunk 1 (from host memory) out max "
+              f"{errs[0][0]:.3g}, vad max {errs[0][1]:.3g}, bit-equal {errs[0][2]}; chunk 2 (the sharded carry) "
+              f"out max {errs[1][0]:.3g}, vad max {errs[1][1]:.3g}, bit-equal {errs[1][2]}; launches (K1, K2) a "
+              f"chunk {launches}; carry slices on their entries' devices {placed} ({card})")
+        if not all(o <= SPLIT_OUT_BAR and v <= SPLIT_VAD_BAR for o, v, _ in errs):
+            failures.append(f"the split over {n} entries misses its bars against StreamBatch")
+        if any(l != (n, n) for l in launches):
+            failures.append(f"the split over {n} entries did not launch K1 and K2 once a shard a chunk")
+        if not placed:
+            failures.append(f"a carry slice of the split over {n} entries left its entry's device")
+        del carry, state
+    base_ms.append(chunk_ms(unsharded))
+    print(f"[18] unsharded StreamBatch B={b} T={t}: {base_ms[0]:.2f} ms a chunk before the splits, "
+          f"{base_ms[1]:.2f} ms after ({card})")
+    del want, ref
+
+    # where a split's time goes on one card: one shard's chunk, K1 and K2
+    # alone at the shard's batch, each times the shard count
+    carry0 = nt.init_batch_carry(engine.model.meta, b, dev)
+    pre, _ = precompute_chunk(carry0.feat.input_mem, carry0.feat.hp_mem, chunk(0))
+    filt, _ = biquad_filter_frames(chunk(0), carry0.feat.hp_mem, tuple(BIQUAD_HP_A), tuple(BIQUAD_HP_B))
+    ds, w0 = decimate(torch.cat([carry0.feat.input_mem, filt.reshape(b, -1)], 1), t)
+    arrays = fk.carry_arrays(carry0)
+    for n in (1, *MESH_SHARDS):
+        s = b // n
+        shard = _map_leaves(lambda x: x[:s].contiguous(), carry0)
+        one = chunk(0)[:s].contiguous()
+        args1 = (ds[:s].contiguous(), w0[:, :s].contiguous(), t)
+        args2 = (engine.rnn, engine.weights, tuple(a[:s].contiguous() for a in arrays),
+                 pre.filtered[:, :s].contiguous(), pre.cand[:, :s].contiguous())
+        shard_ms = cuda_ms(torch, lambda: nt.denoise.process_chunk(engine, shard, one), TIMED_CHUNKS)
+        k1 = cuda_ms(torch, lambda: pk.pitch_analysis_cuda(*args1), TIMED_CHUNKS)
+        k2 = cuda_ms(torch, lambda: fk.frame_loop_cuda(*args2), TIMED_CHUNKS)
+        print(f"[18] a shard of B={s}: chunk {shard_ms:.2f} ms, K1 {k1:.2f} ms, K2 {k2:.2f} ms; x {n} shards: "
+              f"{n * shard_ms:.2f}, {n * k1:.2f}, {n * k2:.2f} ms ({card})")
+        del shard, one, args1, args2
+    del carry0, pre, filt, ds, w0, arrays
+
+    # ---- data-parallel fit over a 1-rank NCCL mesh ----
+    rng = np.random.RandomState(18)
+    n_seq = DP_STEPS * TRAIN_BATCH
+    gains = rng.rand(n_seq, TRAIN_WINDOW, 22) ** rng.uniform(0.3, 3.0, (n_seq, 1, 1))  # unequal sample weights
+    arrays = (rng.randn(n_seq, TRAIN_WINDOW, 42).astype(np.float32), gains.astype(np.float32),
+              (rng.rand(n_seq, TRAIN_WINDOW, 1) > 0.5).astype(np.float32))
+    kw = dict(epochs=1, batch_size=TRAIN_BATCH, seed=18, log_every=10 ** 6, device=dev)
+
+    def timed_fit(**extra):
+        start.record()
+        params = fit(*arrays, **kw, **extra)
+        end.record()
+        end.synchronize()
+        return params, start.elapsed_time(end) / DP_STEPS
+
+    one, one_ms = timed_fit()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            dp, dp_ms = timed_fit(mesh=init_device_mesh("cuda", (1,), mesh_dim_names=("dp",)))
+        finally:
+            dist.destroy_process_group()
+    rel = max(float(np.abs(dp[layer][k] - w).max() / max(float(np.abs(w).max()), 1e-30))
+              for layer, leaves in one.items() for k, w in leaves.items())
+    bit = all(np.array_equal(dp[layer][k], w) for layer, leaves in one.items() for k, w in leaves.items())
+    print(f"[18] fit at batch {TRAIN_BATCH} x {TRAIN_WINDOW}, {DP_STEPS} steps: {one_ms:.1f} ms a step with "
+          f"mesh=None, {dp_ms:.1f} ms over a 1-rank NCCL DeviceMesh (CUDA events around fit: init, upload "
+          f"and readback included); parameters max |d| over the leaf's max {rel:.3g} (bar {DP_BAR:g}), "
+          f"bit-equal {bit} ({card})")
+    if not rel <= DP_BAR:
+        failures.append("fit over the 1-rank mesh parts from fit with mesh=None")
+    if failures:
+        raise RuntimeError("phase 18: " + "; ".join(failures))
+
+
 def main() -> int:
     import torch
 
@@ -1231,6 +1394,9 @@ def main() -> int:
 
     # ---- 17. the training path ----------------------------------------------------------------
     training_phase(torch, dev, card, reset_counts, counts)
+
+    # ---- 18. the multi-device split and data-parallel fit --------------------------------------
+    parallel_phase(torch, dev, card, engine, big, reset_counts, counts)
 
     band_nnz = int((BAND_CORR_MATRIX != 0).sum())
     bounds = kernel_bounds(b6, t6, b6 * t6, 2 * b6 * t6, b6 * t6, band_nnz)

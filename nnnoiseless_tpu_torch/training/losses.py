@@ -57,10 +57,16 @@ def l2_regularization(model) -> torch.Tensor:
     return GRU_L2 * reg
 
 
-def total_loss(gains_true, gains_pred, vad_true, vad_pred, sample_weight=None):
+def total_loss(gains_true, gains_pred, vad_true, vad_pred, sample_weight=None, weight_total=None):
     """10 * mycost + 0.5 * my_crossentropy, averaged over batch and time
-    (weighted by ``sample_weight`` (B, T) when given)."""
+    (weighted by ``sample_weight`` (B, T) when given).
+
+    ``weight_total``: where this batch is one rank's part of a global
+    batch, the sum of the global batch's weights, so that the ranks' losses
+    add up to the global weighted mean (``sample_weight.sum()`` otherwise).
+    """
     per_step = 10.0 * gain_loss(gains_true, gains_pred) + 0.5 * vad_loss(vad_true, vad_pred)
     if sample_weight is not None:
-        return (per_step * sample_weight).sum() / torch.clamp(sample_weight.sum(), min=1e-6)
+        total = sample_weight.sum() if weight_total is None else weight_total
+        return (per_step * sample_weight).sum() / torch.clamp(total, min=1e-6)
     return per_step.mean()

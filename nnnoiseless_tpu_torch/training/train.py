@@ -1,10 +1,13 @@
-"""Training loop: Adam + weight clipping on one device.
+"""Training loop: Adam + weight clipping, on one device or data-parallel
+over a 1-D ``torch.distributed`` device mesh.
 
 The counterpart of ``nnnoiseless_tpu/training/train.py``, the equivalent of
 train/rnn_train.py (same topology, losses, loss weights, sequence length
 2000, batch 32, sample reweighting by mean gain tertile).  The dataset goes
 to the device once; each step gathers its batch there from a (B,) index
-vector (:func:`train_step_indexed`).
+vector (:func:`train_step_indexed`).  Over a mesh every rank holds the whole
+dataset and takes its slice of each step's index vector, and one all-reduce
+a step makes the step that of the global batch (:func:`train_step_dp`).
 
 Usage::
 
@@ -22,6 +25,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..constants import NB_BANDS, NB_FEATURES
 from ..denoise import check_device
@@ -94,6 +98,45 @@ def train_step_indexed(model: TrainableModel, opt: torch.optim.Adam, data: dict,
     batch = {k: v.index_select(0, idx) for k, v in data.items()}
     sw = seq_weights.index_select(0, idx)[:, None].expand(batch["vad"].shape[:2])
     return train_step(model, opt, batch, sw)
+
+
+def train_step_dp(model: TrainableModel, opt: torch.optim.Adam, data: dict, idx: torch.Tensor,
+                  seq_weights: torch.Tensor, mesh) -> torch.Tensor:
+    """One step of the global batch ``idx`` on this rank of the 1-D
+    DeviceMesh ``mesh``: the rank gathers its contiguous slice of ``idx``
+    (the same vector on every rank) from its whole copy of ``data``, and
+    the step is the single-device step on all of ``idx``, up to rounding.
+
+    The loss is a weighted mean over the global batch, so each rank's part
+    is its weighted sum over the global weight total, which every rank
+    computes from ``idx`` alone; the l2 term is rank 0's.  One all-reduce
+    (SUM) of the flattened gradients and the loss gives each rank the
+    global gradient, then every rank takes the same Adam update and clip.
+    Averaging the ranks' own weighted means, as stock DDP would, is not
+    that gradient when their weight sums differ.  Returns the global loss.
+    """
+    n, rank = mesh.size(), mesh.get_local_rank()
+    b = idx.shape[0]
+    mine = idx[rank * b // n : (rank + 1) * b // n]
+    t = data["vad"].shape[1]
+    weight_total = seq_weights.index_select(0, idx)[:, None].expand(b, t).sum()
+    batch = {k: v.index_select(0, mine) for k, v in data.items()}
+    sw = seq_weights.index_select(0, mine)[:, None].expand(batch["vad"].shape[:2])
+    gains_pred, vad_pred = sequence_forward(model, batch["features"])
+    loss = total_loss(batch["gains"], gains_pred, batch["vad"], vad_pred, sw, weight_total)
+    if rank == 0:
+        loss = loss + l2_regularization(model)
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    params = list(model.parameters())
+    flat = torch.cat([p.grad.reshape(-1) for p in params] + [loss.detach().reshape(1)])
+    dist.all_reduce(flat, group=mesh.get_group())
+    for p, g in zip(params, flat[:-1].split([p.numel() for p in params])):
+        p.grad.copy_(g.view_as(p))
+    _apply_schedule(opt)
+    opt.step()
+    clip_params(model)
+    return flat[-1]
 
 
 def compute_sample_weights(gains: np.ndarray) -> np.ndarray:
@@ -207,6 +250,7 @@ def fit(
     total_steps: Optional[int] = None,
     history: Optional[list] = None,
     device="cuda",
+    mesh=None,
 ) -> dict:
     """Train on ``device`` and return float params as numpy arrays in the
     JAX package's layout.
@@ -215,10 +259,31 @@ def fit(
     ``total_steps``, by default the whole run).  ``history`` (if given)
     collects (step, loss) pairs, read back from the device once at the end.
     A run resumed from a checkpoint takes its epochs again from the saved
-    step.  The JAX function's ``mesh`` (data parallelism over devices) is
-    not here yet: this trains on one device.
+    step.
+
+    ``mesh``: a 1-D ``torch.distributed`` DeviceMesh with the dim name
+    "dp" for data parallelism, one process a rank (gloo on the CPU, NCCL
+    on cards, each rank on its own ``device``, e.g. ``cuda:<local_rank>``
+    under torchrun).  Every rank runs this call with the same arguments:
+    the dataset, the weights and the permutation are whole on each, rank r
+    takes the r-th contiguous slice of each step's ``batch_size`` indices
+    (divisible by the mesh size), and :func:`train_step_dp` makes the step
+    the global batch's.  ``history`` and the log lines hold the global
+    loss, and only rank 0 logs and writes checkpoints; every rank resumes
+    from them.
     """
     device = check_device(device)
+    rank = 0
+    if mesh is not None:
+        if mesh.ndim != 1 or mesh.mesh_dim_names != ("dp",):
+            raise ValueError(f"mesh must be 1-D with the dim name 'dp', got {mesh.mesh_dim_names}")
+        if mesh.device_type != device.type:
+            raise ValueError(f"mesh is of {mesh.device_type} devices, device is {device}")
+        if batch_size % mesh.size() != 0:
+            raise ValueError(f"batch_size {batch_size} must be divisible by the mesh size {mesh.size()}")
+        rank = mesh.get_local_rank()
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
     if lr_schedule == "cosine":
         cosine_steps = total_steps or epochs * max(len(features) // batch_size, 1)
     elif lr_schedule is None:
@@ -230,7 +295,8 @@ def fit(
     step = 0
     if resume_from:
         step = restore_checkpoint(resume_from, model, opt)
-        print(f"resumed from {resume_from} at step {step}")
+        if rank == 0:
+            print(f"resumed from {resume_from} at step {step}")
     seq_w = torch.as_tensor(compute_sample_weights(gains), device=device)
     n = len(features)
     rng = np.random.RandomState(seed)
@@ -243,20 +309,26 @@ def fit(
         perm = rng.permutation(n)
         for i in range(0, n - batch_size + 1, batch_size):
             idx = torch.as_tensor(perm[i : i + batch_size], device=device)
-            loss = train_step_indexed(model, opt, data, idx, seq_w)
-            if done % log_every == 0:
+            if mesh is None:
+                loss = train_step_indexed(model, opt, data, idx, seq_w)
+            else:
+                loss = train_step_dp(model, opt, data, idx, seq_w, mesh)
+            if done % log_every == 0 and rank == 0:
                 print(f"epoch {epoch} step {done} loss {float(loss):.5f}")
             if history is not None:
                 pending.append((done, loss))
             done += 1
             step += 1
-            if checkpoint_dir and done % checkpoint_every == 0:
+            if checkpoint_dir and done % checkpoint_every == 0 and rank == 0:
                 save_checkpoint(checkpoint_dir, model, opt, step)
     if history is not None and pending:
         losses = torch.stack([l for _, l in pending]).cpu().numpy()
         history.extend((s, float(l)) for (s, _), l in zip(pending, losses))
-    if checkpoint_dir:
+    if checkpoint_dir and rank == 0:
         save_checkpoint(checkpoint_dir, model, opt, step)
+    if mesh is not None and checkpoint_dir:
+        # no rank returns before the last checkpoint exists
+        dist.barrier(group=mesh.get_group(), device_ids=[device.index] if device.type == "cuda" else None)
     return numpy_params(model)
 
 

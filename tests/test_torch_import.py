@@ -59,6 +59,33 @@ def test_import_and_cpu_run_without_jax():
     assert res.stdout.strip() == "ok"
 
 
+_PARALLEL_PROBE = """
+import sys
+import numpy as np
+import nnnoiseless_tpu_torch as nt
+from nnnoiseless_tpu_torch import parallel
+from nnnoiseless_tpu_torch.parallel import dryrun, mesh
+m = parallel.make_mesh(["cpu", "cpu"])
+model = nt.RnnModel.default()
+frames = np.random.RandomState(0).randn(2, 2, 480).astype(np.float32) * 1000
+carry, out, vad = parallel.sharded_process_frames(model, nt.init_batch_carry(model.meta, 2, "cpu"), frames, m)
+assert out.shape == (2, 2, 480) and len(carry) == 2
+loaded = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "nnnoiseless_tpu"))
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def test_parallel_imports_neither_jax_nor_the_jax_package():
+    """The split and the dry run import no jax and no module of
+    nnnoiseless_tpu, and the split runs without them."""
+    res = subprocess.run(
+        [sys.executable, "-c", _PARALLEL_PROBE], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 def test_wrappers_take_only_cpu_or_cuda():
     ds = torch.zeros((2, 864 + 240), device="meta")
     w0 = torch.zeros((1, 2), device="meta")

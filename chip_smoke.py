@@ -22,10 +22,24 @@
    (every call on the same inputs), its time a call (launched from
    Python, host cost included), the earlier designs' times beside them,
    and the plain version's;
-8. the per-frame path: the golden clip through DenoiseState.process_frame
-   (K3, K5, K6 launch; K1, K2 do not), and its per-call latency;
+8. the per-frame path: the golden clip through DenoiseState.process_frame,
+   one replay a call of the state's captured graph of frame_step (K3, K5
+   and K6 once each a replay, K1 and K2 never; the warm-up step before the
+   capture launches them once more), under the golden bars and bit-equal
+   to a loop of the eager frame_step on the card; the graph's pool; the
+   latency a call (median, p99, max, the share over the 10 ms frame)
+   beside the eager loop's, one replay's device time, and a call's host
+   launches, device operations and device busy time by torch.profiler,
+   graphed and eager;
 9. the scan engine at full width: StreamBatch(4096) with fused=False, one
-   warm-up and one timed chunk, against the two-phase engine's chunk from
+   warm-up chunk (it captures the step graph) and one timed chunk, bit-equal
+   to the eager frame loop (a loop of pipeline.frame_step_hoisted) from the
+   same carry, K1 once and K5, K6 once a frame; both chunks' times, and a
+   frame's host launches (CUDA runtime calls that put work on the card: at
+   most 12 a frame for the graphed one), device operations and device
+   busy time by torch.profiler; the lag-0 precompute's device time and one
+   replay's; against the
+   two-phase engine's chunk from
    the same carry with K2's plain version in phase 2 (the scan engine's
    dense transforms), under phase 4's bars; and K2 against that plain
    version at the main path's shape, B=4096, T=100: phase 4's bars, the
@@ -172,6 +186,12 @@ MESH_SHARDS = (2, 4)
 SPLIT_OUT_BAR, SPLIT_VAD_BAR = 1.0, 1e-3
 DP_STEPS = 2
 DP_BAR = 1e-6  # of each leaf's largest magnitude
+# phase 9: the CUDA runtime calls torch.profiler records that put work on
+# the card, and the most of them the graphed scan engine may issue a frame
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                 "cudaMemcpyAsync", "cudaMemsetAsync", "cudaGraphLaunch", "cuGraphLaunch")
+SCAN_LAUNCH_BAR = 12
+PROFILED_CALLS = 20  # phase 8: process_frame calls under torch.profiler
 
 
 def fft960_flops() -> int:
@@ -425,6 +445,63 @@ def pitch_bars(torch, kern, plain, lag_lanes: bool = True, windows=None) -> tupl
     return ok, err, (f"{n_diff} of {differ.numel()} windows differ in pidx/t-lanes (largest pidx "
                      f"step {worst}, {len(big)} over 2); matching windows: max abs {err:.3g}, "
                      f"row-scale {rel:.3g}{ties}")
+
+
+def eager_frames(torch, engine, dev, frames, passes: int):
+    """The per-frame path without its graph, the reference phase 8 holds
+    the graph to: a loop of the eager pipeline.frame_step at B=1 from a
+    zero carry, each call uploading its frame and reading back its output
+    and vad.  Returns (the first pass's outputs (T, 480), every call's wall
+    ms over ``passes`` passes)."""
+    from nnnoiseless_tpu_torch.pipeline import frame_step, init_carry
+
+    ms, outs = [], []
+    for p in range(passes):
+        carry = init_carry(engine.model.meta, 1, dev)
+        for f in frames:
+            t0 = time.perf_counter()
+            carry, out, vad = frame_step(engine.rnn, carry, torch.as_tensor(f[None], device=dev),
+                                         engine.rnn_weights)
+            o, _ = out[0].cpu().numpy(), float(vad[0])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if p == 0:
+                outs.append(o)
+    return np.stack(outs), ms
+
+
+def eager_scan(torch, engine, carry, frames):
+    """The scan engine without its graph, the reference phase 9 holds the
+    graph to: the lag-0 precompute, then a loop of the eager
+    pipeline.frame_step_hoisted.  Returns (out (B, T, 480), vad (B, T),
+    periods (B, T))."""
+    from nnnoiseless_tpu_torch.chunk import precompute_chunk
+    from nnnoiseless_tpu_torch.pipeline import FramePre, frame_step_hoisted
+
+    pre, _ = precompute_chunk(carry.feat.input_mem, carry.feat.hp_mem, frames, lag0=True)
+    outs, vads, pers = [], [], []
+    for t in range(frames.shape[1]):
+        carry, out, vad = frame_step_hoisted(engine.rnn, carry, FramePre(*(f[t] for f in pre)),
+                                             engine.rnn_weights)
+        outs.append(out)
+        vads.append(vad)
+        pers.append(carry.feat.pitch_period)
+    return torch.stack(outs, 1), torch.stack(vads, 1), torch.stack(pers, 1)
+
+
+def profile_run(torch, run, per: int):
+    """``run()`` under torch.profiler, per one of ``per`` units (calls or
+    frames): (the CUDA runtime calls of HOST_LAUNCHES by name, their sum,
+    device operations, device busy ms).  Device busy is the sum of the
+    device time of every operation the profiler saw on the card."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    host = {e.key: e.count for e in events if e.key in HOST_LAUNCHES}
+    on_dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (host, sum(host.values()) / per, sum(e.count for e in on_dev) / per,
+            sum(e.self_device_time_total for e in on_dev) / 1e3 / per)
 
 
 def golden_worst(out: np.ndarray, ref: np.ndarray) -> tuple[float, float]:
@@ -723,12 +800,6 @@ def training_phase(torch, dev, card: str, reset_counts, counts) -> None:
         raise RuntimeError("phase 17: " + "; ".join(failures))
 
 
-def _leaves(tree) -> list:
-    if hasattr(tree, "_fields"):
-        return [leaf for sub in tree for leaf in _leaves(sub)]
-    return [tree]
-
-
 def _map_leaves(fn, tree):
     if hasattr(tree, "_fields"):
         return type(tree)(*(_map_leaves(fn, sub) for sub in tree))
@@ -745,6 +816,7 @@ def parallel_phase(torch, dev, card: str, engine, big, reset_counts, counts) -> 
     from torch.distributed.device_mesh import init_device_mesh
 
     import nnnoiseless_tpu_torch as nt
+    from nnnoiseless_tpu_torch import programs
     from nnnoiseless_tpu_torch.chunk import decimate, precompute_chunk
     from nnnoiseless_tpu_torch.ops import frame_kernel as fk
     from nnnoiseless_tpu_torch.ops import pitch_kernel as pk
@@ -786,7 +858,7 @@ def parallel_phase(torch, dev, card: str, engine, big, reset_counts, counts) -> 
             errs.append((float((out - want_out).abs().max()), float((vad - want_vad).abs().max()),
                          torch.equal(out, want_out) and torch.equal(vad, want_vad)))
             del out, vad
-        placed = all(leaf.device == d for shard, d in zip(carry, mesh.devices) for leaf in _leaves(shard))
+        placed = all(leaf.device == d for shard, d in zip(carry, mesh.devices) for leaf in programs.leaves(shard))
         state = [carry]
 
         def sharded(c):
@@ -867,6 +939,151 @@ def parallel_phase(torch, dev, card: str, engine, big, reset_counts, counts) -> 
         raise RuntimeError("phase 18: " + "; ".join(failures))
 
 
+def per_frame_phase(torch, dev, card: str, clip_frames, ref, reset_counts, counts) -> dict:
+    """Phase 8, the per-frame path (see the module docstring): the golden
+    clip's frames ``clip_frames`` (T, 480) and the reference output
+    ``ref``.  Returns the launches of the process_frame run.  Raises on a
+    failed bar."""
+    import nnnoiseless_tpu_torch as nt
+
+    t5 = len(clip_frames)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    state = nt.DenoiseState(device=dev)
+    reset_counts()
+    out8 = np.stack([np.concatenate([state.process_frame(f)[0] for f in clip_frames])])
+    torch.cuda.synchronize()
+    counts8 = counts()
+    prog8 = state.program.program
+    worst_rel, worst_max = golden_worst(out8, ref)
+    eager8, eager_ms = eager_frames(torch, state.engine, dev, clip_frames, LATENCY_PASSES + 1)
+    bit8 = np.array_equal(out8[0], eager8.reshape(-1))
+    print(f"[8] per-frame golden T={t5}: rel {worst_rel:.3g}, max per-sample {worst_max:.0f}; the graph "
+          f"against the eager frame_step loop on the card: bit-equal {bit8}, max |d| "
+          f"{float(np.abs(out8[0] - eager8.reshape(-1)).max()):.3g}; {prog8.replays} replays for {t5} calls, "
+          f"{prog8.warmups} warm-up step, kernels captured {prog8.captured}, launches {counts8}; the "
+          f"state's graph pool {prog8.pool_bytes / 2 ** 20:.1f} MiB")
+    if not (worst_rel < 1e-4 and worst_max <= 2):
+        raise RuntimeError("golden bars failed through DenoiseState.process_frame")
+    if not bit8:
+        raise RuntimeError("the graphed process_frame is not bit-equal to the eager frame_step loop")
+    runs8 = prog8.replays + prog8.warmups
+    if (prog8.replays != t5 or prog8.captured != {"K3": 1, "K5": 1, "K6": 1}
+            or any(counts8[k] != runs8 for k in ("K3", "K5", "K6")) or counts8["K1"] or counts8["K2"]):
+        raise RuntimeError("the per-frame path did not replay one graph a call with K3, K5 and K6 once each")
+    call_ms = []
+    for _ in range(LATENCY_PASSES):
+        state.reset()
+        for f in clip_frames:
+            t0 = time.perf_counter()
+            state.process_frame(f)
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+    start.record()
+    for _ in range(t5):
+        prog8.graph.replay()
+    end.record()
+    end.synchronize()
+    replay8_ms = start.elapsed_time(end) / t5
+    for name, ms in (("graphed", call_ms), ("eager loop", eager_ms[t5:])):
+        p50, p99 = np.percentile(ms, [50, 99])
+        print(f"[8] process_frame latency, {name}, over {len(ms)} calls: median {p50:.3f} ms, p99 {p99:.3f} ms, "
+              f"max {max(ms):.3f} ms, over 10 ms {np.mean(np.array(ms) > 10.0):.2%} ({card})")
+    print(f"[8] one replay on the device (CUDA events over {t5} back-to-back replays): {replay8_ms:.4f} ms ({card})")
+    calls = clip_frames[:PROFILED_CALLS]
+    for name, run in (("graphed", lambda: [state.process_frame(f) for f in calls]),
+                      ("eager loop", lambda: eager_frames(torch, state.engine, dev, calls, 1))):
+        host, n_host, n_dev, busy = profile_run(torch, run, len(calls))
+        print(f"[8] a call, {name} (torch.profiler over {len(calls)} calls): host launches {n_host:.2f} "
+              f"{host}, device operations {n_dev:.1f}, device busy {busy:.4f} ms ({card})")
+    return counts8
+
+
+def scan_phase(torch, dev, card: str, engine, big, chunk_ms: float, reset_counts, counts) -> dict:
+    """Phase 9, the scan engine at full width (see the module docstring):
+    ``big`` phase 6's input on the card, ``chunk_ms`` phase 6's two-phase
+    chunk.  Returns the launches of the timed chunk.  Raises on a failed
+    bar."""
+    import nnnoiseless_tpu_torch as nt
+    from nnnoiseless_tpu_torch.chunk import precompute_chunk
+    from nnnoiseless_tpu_torch.ops import frame_kernel as fk
+
+    b6, t6 = REAL_SHAPE
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    scan_engine = nt.Engine(engine.model, dev, fused=False)
+    batch9 = nt.StreamBatch(b6, scan_engine, device=dev)
+    reset_counts()
+    batch9.process_tensor(big[:, :t6])  # warm-up chunk: captures the step graph
+    torch.cuda.synchronize()
+    prog9 = scan_engine.scan_program(b6).program
+    chunk9 = big[:, t6 : 2 * t6]
+    reset_counts()
+    start.record()
+    _, out9, vad9, (per9, _) = nt.scan_chunk(scan_engine, batch9.carry, chunk9, return_trace=True)
+    end.record()
+    end.synchronize()
+    counts9 = counts()
+    scan_ms = start.elapsed_time(end)
+    start.record()
+    out9e, vad9e, per9e = eager_scan(torch, scan_engine, batch9.carry, chunk9)
+    end.record()
+    end.synchronize()
+    eager9_ms = start.elapsed_time(end)
+    bit9 = torch.equal(out9, out9e) and torch.equal(vad9, vad9e) and torch.equal(per9, per9e)
+    del out9e, vad9e, per9e
+    prof9 = {name: profile_run(torch, run, t6) for name, run in (
+        ("graphed", lambda: nt.scan_chunk(scan_engine, batch9.carry, chunk9)),
+        ("eager", lambda: eager_scan(torch, scan_engine, batch9.carry, chunk9)))}
+    pre_ms = cuda_ms(torch, lambda: precompute_chunk(batch9.carry.feat.input_mem, batch9.carry.feat.hp_mem,
+                                                     chunk9, lag0=True), 3)
+    start.record()
+    for _ in range(t6):
+        prog9.graph.replay()
+    end.record()
+    end.synchronize()
+    replay9_ms = start.elapsed_time(end) / t6
+    print(f"[9] scan engine B={b6} T={t6}: graphed {scan_ms:.2f} ms/chunk, the eager frame loop {eager9_ms:.2f} "
+          f"ms/chunk (two-phase {chunk_ms:.2f} ms); graphed against eager: bit-equal {bit9}; step graph "
+          f"{prog9.replays} replays, kernels captured {prog9.captured}, pool {prog9.pool_bytes / 2 ** 20:.1f} MiB; "
+          f"launches {counts9} ({card})")
+    for name, (host, n_host, n_dev, busy) in prof9.items():
+        print(f"[9] a frame, {name} (torch.profiler over a chunk of T={t6}): host launches {n_host:.2f} "
+              f"{host}, device operations {n_dev:.1f}, device busy {busy:.4f} ms ({card})")
+    print(f"[9] the lag-0 precompute {pre_ms:.3f} ms a chunk, one replay of the step {replay9_ms:.4f} ms "
+          f"(CUDA events over {t6} back-to-back replays) ({card})")
+    if not bit9:
+        raise RuntimeError("the graphed scan engine is not bit-equal to the eager frame loop")
+    if (counts9["K1"] != 1 or counts9["K2"] or counts9["K5"] != t6 or counts9["K6"] != t6
+            or prog9.captured != {"K5": 1, "K6": 1}):
+        raise RuntimeError("the scan engine did not launch K1 once and K5, K6 once a frame, without K2")
+    host, n_host, _, _ = prof9["graphed"]
+    if not host.get("cudaGraphLaunch", 0) >= t6 or n_host > SCAN_LAUNCH_BAR:
+        raise RuntimeError(f"the graphed scan engine issued {n_host:.2f} host launches a frame "
+                           f"(at most {SCAN_LAUNCH_BAR})")
+    pre9, _ = precompute_chunk(batch9.carry.feat.input_mem, batch9.carry.feat.hp_mem, chunk9)
+    packed_pl, _ = fk.frame_loop_plain(engine.rnn, fk.carry_arrays(batch9.carry), pre9.filtered, pre9.cand)
+    out_pl = packed_pl[..., :FRAME].transpose(0, 1)
+    per_pl = packed_pl[..., fk.OFF_PERIOD].transpose(0, 1).to(torch.int32)
+    _, out_k2, _, (per_k2, _) = fk.run_frame_loop(engine.rnn, batch9.carry, pre9, engine.weights,
+                                                  return_trace=True)
+    ok, msg = waveform_bars(torch, out9, out_pl, per9, per_pl)
+    print(f"[9] scan engine against the two-phase engine with K2's plain version: {msg}")
+    if not ok or not bool(torch.isfinite(out9).all()):
+        raise RuntimeError("the scan engine disagrees with the two-phase engine")
+    ok, msg, outliers = k2_full_bars(torch, out_k2, out_pl, per_k2, per_pl)
+    print(f"[9] K2 against its plain version B={b6} T={t6}: {msg}")
+    if outliers:
+        idx = torch.tensor([s for s, _, _ in outliers], device=dev)
+        margins = comb_margins(torch, fk, engine.rnn, tuple(a[idx] for a in fk.carry_arrays(batch9.carry)),
+                               pre9.filtered[:, idx].contiguous(), pre9.cand[:, idx].contiguous())
+        for j, (s, worst, t_w) in enumerate(outliers):
+            near = margins[max(t_w - 1, 0) : t_w + 1, j]
+            print(f"[9]   stream {s}: max {worst:.3g} at frame {t_w}; the comb filter's e > g test, "
+                  f"smallest |e - g| over the bands at frames {max(t_w - 1, 0)}..{t_w}: "
+                  f"{float(near.min()):.3g} (over the chunk: median {float(margins[:, j].median()):.3g})")
+    if not ok:
+        raise RuntimeError("K2 disagrees with its plain version at the main path's shape")
+    return counts9
+
+
 def main() -> int:
     import torch
 
@@ -875,7 +1092,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     import nnnoiseless_tpu_torch as nt
-    from nnnoiseless_tpu_torch import _build
+    from nnnoiseless_tpu_torch import _build, programs
     from nnnoiseless_tpu_torch.chunk import decimate, precompute_chunk
     from nnnoiseless_tpu_torch.ops import fft
     from nnnoiseless_tpu_torch.ops import frame_kernel as fk
@@ -894,13 +1111,10 @@ def main() -> int:
     from nnnoiseless_tpu_torch.tables import BAND_CORR_MATRIX, BIQUAD_HP_A, BIQUAD_HP_B, VORBIS_WINDOW, WNORM
 
     def reset_counts():
-        pk.launches = pk.stacked_launches = fk.launches = rk.launches = wk.launches = 0
-        fk.cand_launches = fft.launches = 0
+        for mod, attr in programs.COUNTERS.values():
+            setattr(mod, attr, 0)
 
-    def counts():
-        return {"K1": pk.launches, "K2": fk.launches, "K3": pk.stacked_launches,
-                "K4": fk.cand_launches, "K5": rk.launches, "K6": wk.launches,
-                "probe": fft.launches}
+    counts = programs.launch_counts
 
     dev = torch.device(DEVICE)
     card = card_line()
@@ -1084,69 +1298,10 @@ def main() -> int:
                 raise RuntimeError(f"{name} disagrees with its plain version at B={b}")
 
     # ---- 8. the per-frame path ---------------------------------------------------
-    state = nt.DenoiseState(device=dev)
-    clip_frames = clip[: t5 * FRAME].reshape(t5, FRAME)
-    reset_counts()
-    out8 = np.stack([np.concatenate([state.process_frame(f)[0] for f in clip_frames])])
-    torch.cuda.synchronize()
-    counts8 = counts()
-    worst_rel, worst_max = golden_worst(out8, ref)
-    print(f"[8] per-frame golden T={t5}: rel {worst_rel:.3g}, max per-sample {worst_max:.0f}; "
-          f"launches {counts8}")
-    if not (worst_rel < 1e-4 and worst_max <= 2):
-        raise RuntimeError("golden bars failed through DenoiseState.process_frame")
-    if min(counts8["K3"], counts8["K5"], counts8["K6"]) == 0 or counts8["K1"] or counts8["K2"]:
-        raise RuntimeError("the per-frame path did not launch exactly K3, K5 and K6")
-    call_ms = []
-    for _ in range(LATENCY_PASSES):
-        state.reset()
-        for f in clip_frames:
-            t0 = time.perf_counter()
-            state.process_frame(f)
-            call_ms.append((time.perf_counter() - t0) * 1e3)
-    p50, p99 = np.percentile(call_ms, [50, 99])
-    print(f"[8] process_frame latency over {len(call_ms)} calls: median {p50:.3f} ms, "
-          f"p99 {p99:.3f} ms, max {max(call_ms):.3f} ms ({card})")
+    counts8 = per_frame_phase(torch, dev, card, clip[: t5 * FRAME].reshape(t5, FRAME), ref, reset_counts, counts)
 
     # ---- 9. the scan engine at full width -------------------------------------------
-    scan_engine = nt.Engine(engine.model, dev, fused=False)
-    batch9 = nt.StreamBatch(b6, scan_engine, device=dev)
-    reset_counts()
-    batch9.process_tensor(big[:, :t6])  # warm-up chunk
-    torch.cuda.synchronize()
-    start.record()
-    _, out9, _, (per9, _) = nt.scan_chunk(scan_engine, batch9.carry, big[:, t6 : 2 * t6], return_trace=True)
-    end.record()
-    end.synchronize()
-    counts9 = counts()
-    scan_ms = start.elapsed_time(end)
-    pre9, _ = precompute_chunk(batch9.carry.feat.input_mem, batch9.carry.feat.hp_mem, big[:, t6 : 2 * t6])
-    packed_pl, _ = fk.frame_loop_plain(engine.rnn, fk.carry_arrays(batch9.carry), pre9.filtered, pre9.cand)
-    out_pl = packed_pl[..., :FRAME].transpose(0, 1)
-    per_pl = packed_pl[..., fk.OFF_PERIOD].transpose(0, 1).to(torch.int32)
-    _, out_k2, _, (per_k2, _) = fk.run_frame_loop(engine.rnn, batch9.carry, pre9, engine.weights,
-                                                  return_trace=True)
-    ok, msg = waveform_bars(torch, out9, out_pl, per9, per_pl)
-    print(f"[9] scan engine B={b6} T={t6}: {scan_ms:.2f} ms/chunk (two-phase {chunk_ms:.2f} ms); "
-          f"against the two-phase engine with K2's plain version: {msg}; launches {counts9} ({card})")
-    if not ok or not bool(torch.isfinite(out9).all()):
-        raise RuntimeError("the scan engine disagrees with the two-phase engine")
-    if min(counts9["K1"], counts9["K5"], counts9["K6"]) == 0 or counts9["K2"]:
-        raise RuntimeError("the scan engine did not launch K1, K5 and K6 without K2")
-    ok, msg, outliers = k2_full_bars(torch, out_k2, out_pl, per_k2, per_pl)
-    print(f"[9] K2 against its plain version B={b6} T={t6}: {msg}")
-    if outliers:
-        idx = torch.tensor([s for s, _, _ in outliers], device=dev)
-        margins = comb_margins(torch, fk, engine.rnn, tuple(a[idx] for a in fk.carry_arrays(batch9.carry)),
-                               pre9.filtered[:, idx].contiguous(), pre9.cand[:, idx].contiguous())
-        for j, (s, worst, t_w) in enumerate(outliers):
-            near = margins[max(t_w - 1, 0) : t_w + 1, j]
-            print(f"[9]   stream {s}: max {worst:.3g} at frame {t_w}; the comb filter's e > g test, "
-                  f"smallest |e - g| over the bands at frames {max(t_w - 1, 0)}..{t_w}: "
-                  f"{float(near.min()):.3g} (over the chunk: median {float(margins[:, j].median()):.3g})")
-    if not ok:
-        raise RuntimeError("K2 disagrees with its plain version at the main path's shape")
-    del out9, out_pl, out_k2, packed_pl, pre9
+    counts9 = scan_phase(torch, dev, card, engine, big, chunk_ms, reset_counts, counts)
 
     # ---- 10. a non-standard topology on the card ---------------------------------------
     b10, t10 = CUSTOM_SHAPE

@@ -6,8 +6,9 @@ NVIDIA H100: the same RNNoise-lineage suppressor (48 kHz mono streams,
 comb filtering, overlap-add resynthesis), with the Pallas kernels of its
 paths rewritten as CUDA C++ kernels for ``sm_90a`` (``csrc/``): the
 two-phase engine (K1, K2), the scan engine (K1, K5, K6), the per-frame
-path (K3, K5, K6) and the tools (K4, K2's stage knob).  It imports
-``torch`` and never ``jax``.
+path (K3, K5, K6) and the tools (K4, K2's stage knob).  The per-frame step
+and the scan engine's frame step run as CUDA graphs captured once and
+replayed (``programs.py``).  It imports ``torch`` and never ``jax``.
 
 Quick start::
 

@@ -67,6 +67,7 @@
 
 #include "fft960.cuh"
 #include "rnn_cell.cuh"
+#include "smem_once.cuh"
 
 namespace frame {
 
@@ -597,8 +598,8 @@ __global__ void __launch_bounds__(THREADS, 2) frame_kernel(const Args a) {
 
 template <int SKIP>
 int launch(const Args& a, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(frame_kernel<SKIP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BYTES);
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err = smem_once(frame_kernel<SKIP>, (int)SMEM_BYTES, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   frame_kernel<SKIP><<<(a.B + S - 1) / S, THREADS, SMEM_BYTES, stream>>>(a);
   return static_cast<int>(cudaGetLastError());

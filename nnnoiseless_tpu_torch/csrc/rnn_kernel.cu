@@ -51,6 +51,7 @@
 #include <stdint.h>
 
 #include "rnn_tile.cuh"
+#include "smem_once.cuh"
 
 namespace {
 
@@ -250,8 +251,8 @@ int launch(const float* tansig, const uint8_t* w, const int* acts, const float* 
            const float* hn, const float* hd, float* hv_o, float* hn_o, float* hd_o, float* gains,
            float* vad, int B, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<T>();
-  cudaError_t err =
-      cudaFuncSetAttribute(rnn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err = smem_once(rnn_kernel<T>, bytes, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   rnn_kernel<T><<<(B + T::S - 1) / T::S, T::THREADS, bytes, stream>>>(
       tansig, w, acts, f, hv, hn, hd, hv_o, hn_o, hd_o, gains, vad, B);

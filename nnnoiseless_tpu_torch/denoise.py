@@ -11,8 +11,9 @@ their wrappers.
   changes the output, because the carry is the complete inter-frame
   dependency.
 * :meth:`DenoiseState.process_frame` is the reference's per-frame API: one
-  :func:`pipeline.frame_step` at B=1 (kernels K3, K5, K6 on CUDA), or the
-  native C++ engine with ``engine="native"``.
+  :func:`pipeline.frame_step` at B=1 (kernels K3, K5, K6 on CUDA) as a
+  captured program (``programs.FrameProgram``), or the native C++ engine
+  with ``engine="native"``.
 
 Audio convention: f32 samples in the i16 range, 48 kHz mono per stream.
 Every entry point takes the device as an argument, ``"cuda"`` by default:
@@ -35,7 +36,8 @@ from .model import ModelMeta, RnnModel
 from .ops.frame_kernel import run_frame_loop
 from .ops.rnn import Rnn
 from .ops.rnn_kernel import pack_tiled, pack_weights
-from .pipeline import DenoiseCarry, FramePre, frame_step, frame_step_hoisted, init_carry
+from .pipeline import DenoiseCarry, init_carry
+from .programs import FrameProgram, ScanProgram, assign, snapshot
 
 # Full-f32 products everywhere: the Toeplitz biquad loses up to ~160 i16
 # units at TF32, and the DFT bases are validated only at f32.
@@ -63,6 +65,8 @@ class Engine:
     model has the standard topology, the rule of the JAX package's
     ``two_phase_available``/``fused_scan_available``; the scan engine
     (:func:`scan_chunk`) otherwise.  ``fused`` defaults to ``NNT_FUSED``.
+    The scan engine's frame loop runs as one :class:`programs.ScanProgram`
+    a batch size, built at its first chunk and kept (:meth:`scan_program`).
     """
 
     def __init__(self, model: RnnModel, device, fused: bool = flags.FUSED):
@@ -74,6 +78,13 @@ class Engine:
         on_card = self.device.type == "cuda" and standard
         self.weights = pack_weights(self.rnn, self.device) if on_card else None
         self.rnn_weights = pack_tiled(self.rnn, self.device) if on_card else None
+        self.scan_programs: dict[int, ScanProgram] = {}
+
+    def scan_program(self, batch: int) -> ScanProgram:
+        """The scan engine's frame program for ``batch`` streams."""
+        if batch not in self.scan_programs:
+            self.scan_programs[batch] = ScanProgram(self, batch)
+        return self.scan_programs[batch]
 
 
 def _engine(model, device) -> Engine:
@@ -100,22 +111,13 @@ def scan_chunk(engine: Engine, carry: DenoiseCarry, frames: torch.Tensor,
     ``return_trace``, as ``ops.frame_kernel.run_frame_loop`` gives them.
 
     The JAX package's ``_scan_batch``: the precompute with its lag-0
-    products (kernel K1 on CUDA), then a loop over the T frames of
-    :func:`pipeline.frame_step_hoisted` (kernels K5 and K6 on CUDA)."""
+    products (kernel K1 on CUDA), then the T frames of
+    :func:`pipeline.frame_step_hoisted` (kernels K5 and K6 on CUDA), each
+    a replay of the engine's :class:`programs.ScanProgram` for B streams.
+    The returned carry's tensors are its own."""
     pre, hp_out = precompute_chunk(carry.feat.input_mem, carry.feat.hp_mem, frames, lag0=True)
-    outs, vads, periods, gains = [], [], [], []
-    for t in range(frames.shape[1]):
-        carry, out, vad = frame_step_hoisted(
-            engine.rnn, carry, FramePre(*(f[t] for f in pre)), engine.rnn_weights
-        )
-        outs.append(out)
-        vads.append(vad)
-        periods.append(carry.feat.pitch_period)
-        gains.append(carry.feat.pitch_gain)
-    result = (_with_hp_mem(carry, hp_out), torch.stack(outs, 1), torch.stack(vads, 1))
-    if return_trace:
-        return (*result, (torch.stack(periods, 1), torch.stack(gains, 1)))
-    return result
+    carry, *rest = engine.scan_program(frames.shape[0])(carry, pre, return_trace)
+    return (_with_hp_mem(carry, hp_out), *rest)
 
 
 def process_chunk(engine: Engine, carry: DenoiseCarry, frames: torch.Tensor):
@@ -154,12 +156,17 @@ class DenoiseState:
     >>> out, vad = state.process_frame(frame)   # frame: 480 f32 samples
 
     ``engine="torch"``: :meth:`process_frame` runs :func:`pipeline.frame_step`
-    at B=1, as the JAX package does, and :meth:`process_chunk` runs the
-    batched engine at B=1, both on ``device``.  ``engine="native"``: the
-    in-process C++ engine (native/denoise_engine.cc through ``native.py``),
-    no device at all; a custom model reaches it as its ``.rnn`` bytes.  As
-    with the reference, the first output frame holds fade-in artifacts and
-    is usually dropped.
+    at B=1, as the JAX package does, through the state's own
+    :class:`programs.FrameProgram`: on a card a CUDA graph captured at the
+    first call (its pool the state's own) and replayed once a frame; on
+    the CPU the same static carry around the eager step.  The carry lives
+    in the program's static tensors: :meth:`reset` zeroes them in place,
+    :meth:`process_chunk` runs the batched engine at B=1 from them and
+    writes its carry back, ``carry`` reads a copy of them and assigning to
+    it copies into them.  ``engine="native"``: the in-process C++ engine
+    (native/denoise_engine.cc through ``native.py``), no device at all; a
+    custom model reaches it as its ``.rnn`` bytes.  As with the reference,
+    the first output frame holds fade-in artifacts and is usually dropped.
     """
 
     FRAME_SIZE = FRAME_SIZE
@@ -176,10 +183,10 @@ class DenoiseState:
             # needs the (lossless) .rnn round trip into its parser
             self._nmodel = NativeModel(rnn_model.to_bytes()) if rnn_model is not None else None
             self._nstate = NativeDenoiseState(self._nmodel)
-            self.engine = None
+            self.engine = self.program = None
         else:
             self.engine = _engine(model, device)
-        self.reset()
+            self.program = FrameProgram(self.engine)
 
     # Constructor aliases mirroring the reference's new/from_model/with_model
     # (ownership distinctions do not exist in Python; all share the model).
@@ -197,7 +204,18 @@ class DenoiseState:
         if self.backend == "native":
             self._nstate.reset()
         else:
-            self.carry = init_batch_carry(self.engine.model.meta, 1, self.engine.device)
+            self.program.reset()
+
+    @property
+    def carry(self) -> Optional[DenoiseCarry]:
+        """A copy of the stream's carry (batch 1); None on the native engine."""
+        return snapshot(self.program.carry) if self.program is not None else None
+
+    @carry.setter
+    def carry(self, value: DenoiseCarry) -> None:
+        if self.program is None:
+            raise ValueError("the native engine keeps its state to itself")
+        assign(self.program.carry, value)
 
     def process_frame(self, frame) -> tuple[np.ndarray, float]:
         """Denoise one 480-sample frame; returns (output, vad_probability)."""
@@ -206,9 +224,7 @@ class DenoiseState:
             raise ValueError(f"expected frame of shape ({FRAME_SIZE},)")
         if self.backend == "native":
             return self._nstate.process_frame(frame)
-        x = torch.as_tensor(frame[None], device=self.engine.device)
-        self.carry, out, vad = frame_step(self.engine.rnn, self.carry, x, self.engine.rnn_weights)
-        return out[0].cpu().numpy(), float(vad[0])
+        return self.program(frame)
 
     def process_chunk(self, frames) -> tuple[np.ndarray, np.ndarray]:
         """Denoise (T, 480) frames in one engine call; returns (out, vad)."""
@@ -217,7 +233,8 @@ class DenoiseState:
             raise ValueError(f"expected frames of shape (T, {FRAME_SIZE})")
         if self.backend == "native":
             return self._nstate.process_frames(frames)
-        self.carry, out, vad = process_frames(self.engine, self.carry, frames)
+        carry, out, vad = process_frames(self.engine, self.program.carry, frames)
+        assign(self.program.carry, carry)
         return out.cpu().numpy(), vad.cpu().numpy()
 
 

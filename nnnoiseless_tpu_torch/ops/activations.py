@@ -6,11 +6,18 @@ correction; output parity needs that approximation, not ``torch.tanh``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..tables import TANSIG_TABLE
 
-_TABLE = torch.from_numpy(TANSIG_TABLE)
+
+@functools.lru_cache(maxsize=8)
+def tansig_table(device: torch.device) -> torch.Tensor:
+    """The 201-entry table on ``device``, uploaded once (kernel K5 reads
+    it too)."""
+    return torch.as_tensor(TANSIG_TABLE, device=device)
 
 
 def tansig_approx(x: torch.Tensor) -> torch.Tensor:
@@ -24,7 +31,7 @@ def tansig_approx(x: torch.Tensor) -> torch.Tensor:
     ax = torch.clamp(torch.nan_to_num(x, nan=0.0).abs(), max=7.99)
     i = torch.floor(0.5 + 25.0 * ax)
     frac = ax - 0.04 * i
-    y = _TABLE.to(x.device)[i.to(torch.int64)]
+    y = tansig_table(x.device)[i.to(torch.int64)]
     dy = 1.0 - y * y
     y = y + frac * dy * (1.0 - y * frac)
     out = sign * y

@@ -57,32 +57,36 @@ def biquad_filter(x: torch.Tensor, mem: torch.Tensor, a, b) -> tuple[torch.Tenso
     return torch.stack(ys, dim=-1), torch.stack([m0, m1], dim=-1)
 
 
+def _on(device: torch.device, tables) -> tuple:
+    """f64 numpy tables as f32 tensors on ``device``."""
+    return tuple(torch.as_tensor(np.ascontiguousarray(m, np.float32), device=device) for m in tables)
+
+
 @functools.lru_cache(maxsize=8)
-def _linear_tables(a0, a1, b0, b1, n):
-    """:func:`_tables_f64` cast to f32 numpy: (W, P, H, Q)."""
-    return tuple(np.ascontiguousarray(m, np.float32) for m in _tables_f64(a0, a1, b0, b1, n))
+def _linear_tables(a0, a1, b0, b1, n, device: torch.device):
+    """:func:`_tables_f64` as f32 tensors on ``device``, uploaded once
+    (the per-frame path calls this every frame, and a CUDA graph cannot
+    capture an upload from pageable memory): (W, P, H, Q)."""
+    return _on(device, _tables_f64(a0, a1, b0, b1, n))
 
 
 def biquad_filter_dense(x: torch.Tensor, mem: torch.Tensor, a, b) -> tuple[torch.Tensor, torch.Tensor]:
     """One block (..., n) with carry (..., 2) as f32 products:
     y = x + x @ W + mem @ P, mem' = x @ H + mem @ Q."""
-    W, P, H, Q = (
-        torch.as_tensor(t, device=x.device)
-        for t in _linear_tables(float(a[0]), float(a[1]), float(b[0]), float(b[1]), x.shape[-1])
-    )
+    W, P, H, Q = _linear_tables(float(a[0]), float(a[1]), float(b[0]), float(b[1]), x.shape[-1], x.device)
     y = x + torch.matmul(x, W) + torch.matmul(mem, P)
     return y, torch.matmul(x, H) + torch.matmul(mem, Q)
 
 
 @functools.lru_cache(maxsize=8)
-def _carry_prop_tables(a0, a1, b0, b1, n, t_count):
+def _carry_prop_tables(a0, a1, b0, b1, n, t_count, device: torch.device):
     """Closed-form carry propagation over ``t_count`` blocks, in Q's modal
     basis (see ``nnnoiseless_tpu/ops/biquad.py::_carry_prop_tables``: Q is
     severely non-normal for the HP filter, so the tables are built where
     its powers are a bounded rotation-scaling and nothing cancels).
 
-    Returns f32 numpy (W (n,n), HT (n,2), Tm (2,2), M (2t, 2(t+1)),
-    Qp (2, 2(t+1)), Pp (2,n), Tinv (2,2)).
+    Returns f32 tensors on ``device``, uploaded once: (W (n,n), HT (n,2),
+    Tm (2,2), M (2t, 2(t+1)), Qp (2, 2(t+1)), Pp (2,n), Tinv (2,2)).
     """
     W, P, H, Q = _tables_f64(a0, a1, b0, b1, n)
     lam, V = np.linalg.eig(Q)
@@ -107,16 +111,7 @@ def _carry_prop_tables(a0, a1, b0, b1, n, t_count):
         for k in range(t):
             M[k, :, t, :] = gpow[t - 1 - k]
     Qp = np.transpose(gpow, (1, 0, 2)).reshape(2, 2 * (t_count + 1))
-    f32 = lambda m: np.ascontiguousarray(m, np.float32)
-    return (
-        f32(W),
-        f32(H @ Tm),
-        f32(Tm),
-        f32(M.reshape(2 * t_count, 2 * (t_count + 1))),
-        f32(Qp),
-        f32(Tinv @ P),
-        f32(Tinv),
-    )
+    return _on(device, (W, H @ Tm, Tm, M.reshape(2 * t_count, 2 * (t_count + 1)), Qp, Tinv @ P, Tinv))
 
 
 # 480-sample frames are filtered as four 120-sample sub-frames: the Toeplitz
@@ -143,11 +138,8 @@ def biquad_filter_frames(
 
 def _biquad_frames_blocked(frames, mem, a, b):
     b_sz, t_count, n = frames.shape
-    tabs = _carry_prop_tables(
-        float(a[0]), float(a[1]), float(b[0]), float(b[1]), n, t_count
-    )
-    W, HT, Tm, M, Qp, Pp, Tinv = (
-        torch.as_tensor(t, device=frames.device) for t in tabs
+    W, HT, Tm, M, Qp, Pp, Tinv = _carry_prop_tables(
+        float(a[0]), float(a[1]), float(b[0]), float(b[1]), n, t_count, frames.device
     )
     xw = torch.matmul(frames, W)  # (B, T, n)
     xh = torch.matmul(frames, HT)  # (B, T, 2), modal basis

@@ -13,16 +13,13 @@ order, for the tests.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from .. import _build
 from ..constants import WEIGHTS_SCALE
 from ..model import RELU, SIGMOID, TANH
-from ..tables import TANSIG_TABLE
-from .activations import relu, sigmoid_approx, tansig_approx
+from .activations import relu, sigmoid_approx, tansig_approx, tansig_table
 
 # Kernel launches since the last reset (the plain version does not count).
 launches = 0
@@ -107,11 +104,6 @@ def pack_tiled(rnn, device: torch.device):
     return buf.to(device), acts.to(device)
 
 
-@functools.lru_cache(maxsize=8)
-def _tansig(device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(TANSIG_TABLE, device=device)
-
-
 def rnn_step_cuda(weights: tuple, hv, hn, hd, features):
     """Launch K5 on the current CUDA stream.  ``weights``: pack_tiled of a
     standard-topology model; states (B, 24), (B, 48), (B, 96), features
@@ -145,7 +137,7 @@ def rnn_step_cuda(weights: tuple, hv, hn, hd, features):
     if b:
         stream = torch.cuda.current_stream(features.device).cuda_stream
         err = _build.library().nnt_rnn_step(
-            _tansig(features.device).data_ptr(), w.data_ptr(), acts.data_ptr(), w.numel(),
+            tansig_table(features.device).data_ptr(), w.data_ptr(), acts.data_ptr(), w.numel(),
             features.data_ptr(), hv.data_ptr(), hn.data_ptr(), hd.data_ptr(),
             *(o.data_ptr() for o in outs), vad.data_ptr(), b, stream,
         )

@@ -242,7 +242,11 @@ def test_per_frame_golden_and_counts(device):
     state = nt.DenoiseState(device=device)
     _reset_counts()
     out = np.concatenate([state.process_frame(f)[0] for f in raw[: 100 * 480].reshape(100, 480)])
-    assert pk.stacked_launches == rk.launches == wk.launches == 100
+    # one replay a call of the captured step; the warm-up step before the
+    # capture launches each kernel once more
+    prog = state.program.program
+    assert prog.replays == 100 and prog.warmups == 1
+    assert pk.stacked_launches == rk.launches == wk.launches == 101
     assert pk.launches == fk.launches == 0
     _golden(out[480:])
 

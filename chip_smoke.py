@@ -78,18 +78,30 @@
 17. the training path (nnnoiseless_tpu_torch.training): a synthetic corpus
    (examples/train_synthetic.py, seed 0: 8 voices and 6 white, pink and
    band noises of 10 s); one generator chunk at w = 96 worlds, T = 625
-   frames (K1 at B = 288, K6 at B = 96) through the kernels and through
-   their plain versions (K1 under phase 6's bars on the combined streams,
-   whose lanes the generator reads; ex within 1e-6 relative, silence
-   equal, features within 1e-4 on all but 2 of the 96 combined streams,
-   each printed where it parts with K1's pitch index flips and their
-   float64 margins); generate at workers=96, chunk=625 for 120,000
-   rows after a warm-up (rows/s, device_s, host_s); the float network and
-   its loss gradient at B=4, T=200 on the card against the CPU; fit at
-   batch 32 x 2000 (60 sequences of the rows), a warm-up step and 5 timed
-   (ms a step, device operations a step by torch.profiler, the losses, the
-   weight clip); the int8 export through denoise_audio (K1, K2) on a 2 s
-   mix against the CPU under the golden bars;
+   frames (K1 at B = 288, K6 at B = 96) through its programs.FeatureProgram
+   (one replay a frame, K6 inside: K1 once, K6 once a replay plus the
+   warm-up's, the graph's pool, warm-up and capture seconds), bit-equal to
+   the eager frame loop on the card (features, ex, silence, every state
+   field), ms a chunk of both, a frame's host launches (at most 12) and
+   device operations by torch.profiler; the chunk through the plain
+   versions (K1 under phase 6's bars on the combined streams, whose lanes
+   the generator reads; ex within 1e-6 relative, silence equal, features
+   within 1e-4 on all but 2 of the 96 combined streams, each printed where
+   it parts with K1's pitch index flips and their float64 margins);
+   generate at workers=96, chunk=625 for 120,000 rows after a warm-up
+   (rows/s, device_s, host_s); the float network and its loss gradient at
+   B=4, T=200 on the card against the CPU; the train step at batch 32 x
+   2000 (60 sequences of the rows) as a programs.TrainProgram: the warm-up
+   and capture seconds, the pool, 3 replays bit-equal to 3 eager steps
+   (capturable Adam) from the same params, ms a step over 5 replays beside
+   the eager steps', one replay's host launches, device operations and
+   kernels by torch.profiler; the same 3 steps at B=4, T=200, the card's
+   graph against the CPU, within tests/test_torch_training.py's bars
+   (losses 1e-5 relative, parameters rtol 1e-4 and atol 1e-5; the worst
+   leaf's elements printed on a miss); fit for 5 steps (ms a step with its
+   capture, the losses, the weight clip); the int8 export through
+   denoise_audio (K1, K2) on a 2 s mix against the CPU under the golden
+   bars;
 18. the multi-device split (nnnoiseless_tpu_torch.parallel) at phase 6's
    size, B=4096, T=100, on phase 6's input: sharded_process_frames over
    make_mesh() (every card present) and over 2 and 4 entries on cuda:0,
@@ -177,6 +189,7 @@ GEN_WORLDS, GEN_CHUNK, GEN_ROWS = 96, 625, 120_000
 CORPUS = (8, 6, 10.0)  # voices, noises, seconds a file
 TRAIN_BATCH, TRAIN_WINDOW, TRAIN_STEPS = 32, 2000, 5
 GRAD_SHAPE = (4, 200)
+GRAPH_STEPS = 3  # train steps of the graph held against the eager steps and the CPU
 GEN_FEAT_BAR = 1e-4  # the CPU test's feature bar against the JAX generator
 GEN_FLIP_STREAMS = 2  # combined streams whose features may part at a pitch decision flip
 SERVE_SECONDS = 2.0
@@ -488,6 +501,22 @@ def eager_scan(torch, engine, carry, frames):
     return torch.stack(outs, 1), torch.stack(vads, 1), torch.stack(pers, 1)
 
 
+def eager_features(state, pre):
+    """The generator's frame loop without its graph, the reference phase 17
+    holds the graph to: a loop of the eager pipeline.analyze_frame_hoisted
+    on the chunk precompute's slices (training.data._feature_chunk's
+    ``frame_loop``)."""
+    import torch
+
+    from nnnoiseless_tpu_torch.pipeline import FramePre, analyze_frame_hoisted
+
+    feats = []
+    for t in range(pre.filtered.shape[0]):
+        state, an = analyze_frame_hoisted(state, FramePre(*(f[t] for f in pre)))
+        feats.append(an.features)
+    return state, torch.stack(feats, 1)
+
+
 def profile_run(torch, run, per: int):
     """``run()`` under torch.profiler, per one of ``per`` units (calls or
     frames): (the CUDA runtime calls of HOST_LAUNCHES by name, their sum,
@@ -600,6 +629,7 @@ def training_phase(torch, dev, card: str, reset_counts, counts) -> None:
     import nnnoiseless_tpu_torch as nt
     from nnnoiseless_tpu_torch import chunk as chunk_mod
     from nnnoiseless_tpu_torch import pipeline as pipe_mod
+    from nnnoiseless_tpu_torch import programs
     from nnnoiseless_tpu_torch.chunk import decimate
     from nnnoiseless_tpu_torch.ops import pitch_kernel as pk
     from nnnoiseless_tpu_torch.ops import window as wk
@@ -611,7 +641,9 @@ def training_phase(torch, dev, card: str, reset_counts, counts) -> None:
     from nnnoiseless_tpu_torch.training.network import (
         WEIGHT_CLIP, export_model, init_train_params, sequence_forward,
     )
-    from nnnoiseless_tpu_torch.training.train import fit, make_optimizer, train_step_indexed
+    from nnnoiseless_tpu_torch.training.train import (
+        compute_sample_weights, fit, make_optimizer, train_step_indexed,
+    )
 
     ts = _load_synth()
     failures = []  # every bar is read before the phase fails, so that one run shows them all
@@ -630,25 +662,53 @@ def training_phase(torch, dev, card: str, reset_counts, counts) -> None:
         print(f"[17] corpus: {n_voices} voices, {n_noises} noises of {seconds:g} s, built in "
               f"{time.perf_counter() - t0:.1f} s; host cores {os.cpu_count()}")
 
-        # ---- one generator chunk through the kernels and through the plain versions ----
+        # ---- one generator chunk: the graph, the eager loop and the plain versions ----
         w, t = GEN_WORLDS, GEN_CHUNK
         with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
             frames_np, _, _ = td._mix_chunk(td._make_worlds(voices, noises, t, 0, w), t, pool)
         frames = torch.from_numpy(frames_np.reshape(2 * w, t, FRAME)).to(dev)
         states = pipe_mod.init_feature_state(3 * w, dev)
+        gen_prog = programs.FeatureProgram(w, dev)
         reset_counts()
-        _, feats_k, ex_k, sil_k = td._feature_chunk(states, frames)
+        st_k, feats_k, ex_k, sil_k = td._feature_chunk(states, frames, gen_prog)
         torch.cuda.synchronize()
         chunk_counts = counts()
-        print(f"[17] generator chunk w={w} T={t}: launches K1 {chunk_counts['K1']} (B={3 * w}), "
-              f"K6 {chunk_counts['K6']} (B={w})")
-        if chunk_counts["K1"] != 1 or chunk_counts["K6"] != t:
-            failures.append("the generator chunk did not launch K1 once and K6 once a frame")
+        g17 = gen_prog.program
+        print(f"[17] generator chunk w={w} T={t} through its graph: launches K1 {chunk_counts['K1']} (B={3 * w}), "
+              f"K6 {chunk_counts['K6']} (B={w}); {g17.replays} replays, {g17.warmups} warm-up step, kernels "
+              f"captured {g17.captured}, pool {g17.pool_bytes / 2 ** 20:.1f} MiB, warm-up {g17.warmup_s:.3f} s, "
+              f"capture {g17.capture_s:.3f} s")
+        if (chunk_counts["K1"] != 1 or g17.replays != t or g17.captured != {"K6": 1}
+                or chunk_counts["K6"] != g17.replays + g17.warmups):
+            failures.append("the generator chunk did not launch K1 once and replay K6 once a frame")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        st_e, feats_e, ex_e, sil_e = td._feature_chunk(states, frames, eager_features)
+        end.record()
+        end.synchronize()
+        eager_chunk_ms = start.elapsed_time(end)
+        start.record()
+        td._feature_chunk(states, frames, gen_prog)
+        end.record()
+        end.synchronize()
+        graph_chunk_ms = start.elapsed_time(end)
+        bit17 = (all(torch.equal(x, y) for x, y in ((feats_k, feats_e), (ex_k, ex_e), (sil_k, sil_e)))
+                 and all(torch.equal(x, y) for x, y in zip(st_k, st_e)))
+        host, n_host, n_dev, busy = profile_run(torch, lambda: td._feature_chunk(states, frames, gen_prog), t)
+        print(f"[17] the chunk's graph against the eager frame loop on the card: bit-equal {bit17} (features, ex, "
+              f"silence, every state field); {graph_chunk_ms:.1f} ms a chunk graphed, {eager_chunk_ms:.1f} ms eager "
+              f"(CUDA events); a frame graphed (torch.profiler over the chunk): host launches {n_host:.2f} {host}, "
+              f"device operations {n_dev:.1f}, device busy {busy:.4f} ms ({card})")
+        if not bit17:
+            failures.append("the generator chunk's graph is not bit-equal to the eager frame loop")
+        if not host.get("cudaGraphLaunch", 0) >= t or n_host > SCAN_LAUNCH_BAR:
+            failures.append(f"the generator's graph issued {n_host:.2f} host launches a frame (at most {SCAN_LAUNCH_BAR})")
+        del st_e, feats_e, ex_e, sil_e, st_k
         wrappers = (chunk_mod.pitch_analysis_stream, pipe_mod.window_at_lag)
         chunk_mod.pitch_analysis_stream, pipe_mod.window_at_lag = pk.pitch_analysis_plain, wk.barrel_shift_window
         try:
             reset_counts()
-            _, feats_p, ex_p, sil_p = td._feature_chunk(states, frames)
+            _, feats_p, ex_p, sil_p = td._feature_chunk(states, frames, eager_features)
             torch.cuda.synchronize()
         finally:
             chunk_mod.pitch_analysis_stream, pipe_mod.window_at_lag = wrappers
@@ -741,10 +801,92 @@ def training_phase(torch, dev, card: str, reset_counts, counts) -> None:
         if not (fwd_err <= 1e-5 and grad_rel[worst] <= 1e-4):
             failures.append("the trainer on the card disagrees with the CPU")
 
+        # ---- the train step as one captured graph, at full width ----
+        on_dev = {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
+        seq_w = torch.as_tensor(compute_sample_weights(arrays["gains"]), device=dev)
+        perm_rng = np.random.RandomState(17)
+        step_idx = [torch.as_tensor(perm_rng.permutation(n_seq)[:TRAIN_BATCH], device=dev)
+                    for _ in range(GRAPH_STEPS)]
+
+        def trainer(where, data, weights, batch):
+            model = init_train_params(torch.Generator().manual_seed(17)).to(where)
+            opt = make_optimizer(model)
+            prog = programs.TrainProgram(lambda idx: train_step_indexed(model, opt, data, idx, weights),
+                                         model, opt, batch)
+            return model, opt, prog
+
+        model_g, _, prog = trainer(dev, on_dev, seq_w, TRAIN_BATCH)
+        losses_g = torch.stack([prog(idx).clone() for idx in step_idx])
+        params_g = [q.detach().clone() for q in model_g.parameters()]
+        torch.cuda.synchronize()
+        tp = prog.program
+        model_e, opt_e, _ = trainer(dev, on_dev, seq_w, TRAIN_BATCH)
+        losses_e, eager_ms = [], []
+        for idx in step_idx:
+            start.record()
+            losses_e.append(train_step_indexed(model_e, opt_e, on_dev, idx, seq_w))
+            end.record()
+            end.synchronize()
+            eager_ms.append(start.elapsed_time(end))
+        bit_train = torch.equal(losses_g, torch.stack(losses_e)) and all(
+            torch.equal(x, y) for x, y in zip(params_g, model_e.parameters()))
+        start.record()
+        for k in range(TRAIN_STEPS):
+            prog(step_idx[k % GRAPH_STEPS])
+        end.record()
+        end.synchronize()
+        replay_ms = start.elapsed_time(end) / TRAIN_STEPS
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            prog(step_idx[0])
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        host = {e.key: e.count for e in events if e.key in HOST_LAUNCHES}
+        dev_events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_ops = sum(e.count for e in dev_events)
+        kernels = sum(e.count for e in dev_events if not e.key.startswith(("Memcpy", "Memset")))
+        busy = sum(e.self_device_time_total for e in dev_events) / 1e3
+        print(f"[17] the train step at batch {TRAIN_BATCH} x {TRAIN_WINDOW} as one CUDA graph: warm-up step "
+              f"{tp.warmup_s:.2f} s, capture and instantiation {tp.capture_s:.2f} s, pool {tp.pool_bytes / 2 ** 20:.1f} "
+              f"MiB; {replay_ms:.1f} ms a step over {TRAIN_STEPS} replays (CUDA events), eager capturable steps "
+              f"{', '.join(f'{m:.1f}' for m in eager_ms)} ms; one replay by torch.profiler: host launches "
+              f"{sum(host.values())} {host}, device operations {dev_ops or 'not traced'}, {kernels} of them kernels "
+              f"(the captured kernels), device busy {busy:.1f} ms ({card})")
+        print(f"[17] {GRAPH_STEPS} graph steps against {GRAPH_STEPS} eager capturable steps from the same params: "
+              f"bit-equal {bit_train} (losses {', '.join(f'{float(l):.6f}' for l in losses_g)})")
+        if not bit_train:
+            failures.append("the train step's graph is not bit-equal to the eager capturable steps")
+        if not dev_ops:
+            failures.append("torch.profiler saw no device operation in a replay of the train step")
+        del prog, tp, model_g, model_e, opt_e, params_g
+        torch.cuda.empty_cache()
+
+        # the same steps at GRAD_SHAPE, the card (its graph) against the CPU
+        sub = {k: np.ascontiguousarray(v[: GRAPH_STEPS * gb, :gt]) for k, v in arrays.items()}
+        sub_w = compute_sample_weights(sub["gains"])
+        small = {}
+        for where in ("cpu", dev):
+            data = {k: torch.as_tensor(v, device=where) for k, v in sub.items()}
+            model, _, prog = trainer(where, data, torch.as_tensor(sub_w, device=where), gb)
+            losses = [prog(torch.arange(k * gb, (k + 1) * gb, device=where)).clone() for k in range(GRAPH_STEPS)]
+            small[str(where)] = (torch.stack(losses).cpu(), {n: q.detach().cpu() for n, q in model.named_parameters()})
+        (l_cpu, p_cpu), (l_card, p_card) = small["cpu"], small[str(dev)]
+        loss_rel = float(((l_card - l_cpu).abs() / l_cpu.abs()).max())
+        excess = {n: float(((p_card[n] - w).abs() - (1e-5 + 1e-4 * w.abs())).max()) for n, w in p_cpu.items()}
+        worst = max(excess, key=excess.get)
+        print(f"[17] {GRAPH_STEPS} steps at B={gb} T={gt}, the card's graph against the CPU: losses max relative "
+              f"{loss_rel:.3g} (bar 1e-5); parameters, worst leaf {worst}: max |d| "
+              f"{float((p_card[worst] - p_cpu[worst]).abs().max()):.3g}, over rtol 1e-4 + atol 1e-5 by "
+              f"{excess[worst]:.3g} (at most 0)")
+        if not (loss_rel <= 1e-5 and excess[worst] <= 0):
+            d = (p_card[worst] - p_cpu[worst]).abs() - (1e-5 + 1e-4 * p_cpu[worst].abs())
+            for i in torch.nonzero(d > 0)[:8].tolist():
+                print(f"[17]   {worst}{i}: card {float(p_card[worst][tuple(i)]):.9g}, CPU "
+                      f"{float(p_cpu[worst][tuple(i)]):.9g}")
+            failures.append("the train steps on the card miss the CPU test's bars")
+
         fit_kw = dict(batch_size=TRAIN_BATCH, seed=17, log_every=10 ** 6, device=dev)
-        fit(*arrays.values(), epochs=1, **fit_kw)  # warm-up step
         history = []
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         params = fit(*arrays.values(), epochs=TRAIN_STEPS, history=history, **fit_kw)
         end.record()
@@ -752,25 +894,9 @@ def training_phase(torch, dev, card: str, reset_counts, counts) -> None:
         step_ms = start.elapsed_time(end) / len(history)
         losses = [l for _, l in history]
         clip = max(float(np.abs(a).max()) for layer in params.values() for a in layer.values())
-        # the device operations of one step, from the profiler
-        model = init_train_params(torch.Generator().manual_seed(17)).to(dev)
-        opt = make_optimizer(model)
-        on_dev = {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
-        step = lambda: train_step_indexed(model, opt, on_dev, torch.arange(TRAIN_BATCH, device=dev),
-                                          torch.ones(n_seq, device=dev))
-        step()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            step()
-            torch.cuda.synchronize()
-        dev_events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        launches = sum(e.count for e in dev_events)
-        kernels = sum(e.count for e in dev_events if not e.key.startswith(("Memcpy", "Memset")))
         print(f"[17] fit at batch {TRAIN_BATCH} x {TRAIN_WINDOW} on {n_seq} sequences: {step_ms:.1f} ms a step "
-              f"(CUDA events around fit of {len(history)} steps after a warm-up step: init, upload and "
-              f"readback included); device operations a step (torch.profiler) {launches or 'not traced'}, "
-              f"{kernels} of them kernels; losses {', '.join(f'{l:.4f}' for l in losses)}; largest |weight| "
-              f"{clip:.4f} ({card})")
+              f"(CUDA events around fit of {len(history)} steps: init, upload, the capture and readback included); "
+              f"losses {', '.join(f'{l:.4f}' for l in losses)}; largest |weight| {clip:.4f} ({card})")
         if len(history) != TRAIN_STEPS or not np.all(np.isfinite(losses)) or clip > WEIGHT_CLIP:
             failures.append("the trainer's losses are not finite or a weight passed the clip")
 

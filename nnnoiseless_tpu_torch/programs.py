@@ -1,13 +1,16 @@
-"""The serving path's compiled programs: captured CUDA graphs of the
-per-frame step and of the scan engine's frame step.
+"""The compiled programs: captured CUDA graphs of the per-frame step, the
+scan engine's frame step, the generator's frame step and the train step.
 
-The counterparts of the JAX package's jitted programs
-(``nnnoiseless_tpu/denoise.py:31-158``): ``_frame_step_jit`` compiles
-``DenoiseState.process_frame`` into one device program a call, and
-``_scan_batch``'s ``lax.scan`` the scan engine's frame loop into one a
-chunk.  PyTorch runs eagerly, so each eager step issues hundreds of host
-launches; here a step is a function that reads and writes static tensors,
-and :class:`StepProgram` runs it:
+The counterparts of the JAX package's jitted programs: ``_frame_step_jit``
+(``nnnoiseless_tpu/denoise.py:31``) compiles ``DenoiseState.process_frame``
+into one device program a call, ``_scan_batch``'s ``lax.scan`` (``:106``)
+the scan engine's frame loop into one a chunk, ``_feature_chunk``
+(``nnnoiseless_tpu/training/data.py:333``) the generator's, and
+``train_step_indexed`` (``nnnoiseless_tpu/training/train.py:114``) a whole
+train step.  PyTorch runs eagerly, so each eager step issues hundreds (a
+train step: hundreds of thousands) of host launches; here a step is a
+function that reads and writes static tensors, and :class:`StepProgram`
+runs it:
 
 * on a CUDA device, the first call runs the step once on a side stream
   (the warm-up: it builds the kernels and uploads the tables that the
@@ -25,6 +28,10 @@ pinned buffer before it and one readback of the output and vad into a
 pinned buffer after it, one synchronisation.  :class:`ScanProgram` is
 ``pipeline.frame_step_hoisted`` at B streams (K5, K6), fed one frame of
 the chunk's precompute at a time through a static :class:`FramePre` slot.
+:class:`FeatureProgram` is ``pipeline.analyze_frame_hoisted`` (K6) fed the
+same way: the generator's frame loop.  :class:`TrainProgram` is one train
+step (forward over the sequence, backward, Adam, the clip) on a static
+index vector.
 
 Launch counts: a kernel wrapper counts a launch when its Python runs.
 While a step is captured nothing launches, so the capture takes back the
@@ -33,18 +40,30 @@ each replay adds them again.  The warm-up's launches are real and count.
 
 A program's static tensors are its state: one program serves one caller
 at a time (a ``DenoiseState`` owns its :class:`FrameProgram`, an
-``Engine`` one :class:`ScanProgram` per batch size).
+``Engine`` one :class:`ScanProgram` per batch size, a ``generate`` call its
+:class:`FeatureProgram`, a ``fit`` call its :class:`TrainProgram`).
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
-from .constants import FRAME_SIZE, FREQ_SIZE, NB_BANDS
+from .constants import FRAME_SIZE, FREQ_SIZE, NB_BANDS, NB_FEATURES
 from .ops import fft, frame_kernel, pitch_kernel, rnn_kernel, window
 from .ops.pitch import N_CAND
-from .pipeline import DenoiseCarry, FramePre, frame_step, frame_step_hoisted, init_carry
+from .pipeline import (
+    DenoiseCarry,
+    FeatureState,
+    FramePre,
+    analyze_frame_hoisted,
+    frame_step,
+    frame_step_hoisted,
+    init_carry,
+    init_feature_state,
+)
 
 # The kernel wrappers' launch counters, by the names the tools print.
 COUNTERS = {
@@ -99,7 +118,9 @@ class StepProgram:
     to call; the warm-up before the capture leaves them as it found them.
     After the capture: :attr:`captured` (kernel name -> launches recorded
     in the graph), :attr:`pool_bytes` (device memory the capture reserved
-    for the graph's pool), :attr:`replays`, :attr:`warmups`.
+    for the graph's pool), :attr:`warmup_s` and :attr:`capture_s` (wall
+    seconds of the warm-up step and of the capture with the graph's
+    instantiation), :attr:`replays`, :attr:`warmups`.
     """
 
     def __init__(self, step, state, device):
@@ -109,6 +130,7 @@ class StepProgram:
         self.graph = None
         self.captured: dict = {}
         self.pool_bytes = 0
+        self.warmup_s = self.capture_s = 0.0
         self.replays = 0
         self.warmups = 0
 
@@ -125,15 +147,19 @@ class StepProgram:
 
     def _capture(self) -> None:
         dev = self.device
-        saved = [t.clone() for t in self._state]
+        saved = [t.detach().clone() for t in self._state]
+        t0 = time.perf_counter()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             self._step()
         torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        self.warmup_s = time.perf_counter() - t0
         self.warmups += 1
-        for t, s in zip(self._state, saved):
-            t.copy_(s)
+        with torch.no_grad():  # the state may hold parameters
+            for t, s in zip(self._state, saved):
+                t.copy_(s)
         del saved
         # torch.cuda.graph empties the allocator's cache as it enters; doing
         # it first makes the growth of the reserved memory the pool's size
@@ -141,6 +167,7 @@ class StepProgram:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         before = launch_counts()
+        t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph):
@@ -148,6 +175,7 @@ class StepProgram:
         finally:
             after = launch_counts()
             _add_counts({k: before[k] - after[k] for k in before})
+        self.capture_s = time.perf_counter() - t0
         self.captured = {k: after[k] - before[k] for k in before if after[k] != before[k]}
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.graph = graph
@@ -193,6 +221,14 @@ class FrameProgram:
             leaf.zero_()
 
 
+def _pre_slot(batch: int, device) -> FramePre:
+    """A zeroed :class:`FramePre` of one frame (lag-0 fields included) for
+    ``batch`` streams: the static slot a frame program reads."""
+    z = lambda *shape, dtype=torch.float32: torch.zeros((batch,) + shape, dtype=dtype, device=device)
+    return FramePre(filtered=z(FRAME_SIZE), cand=z(N_CAND), x=z(2 * FREQ_SIZE),
+                    ex=z(NB_BANDS), silence=z(dtype=torch.bool), ceps=z(NB_BANDS))
+
+
 class ScanProgram:
     """``pipeline.frame_step_hoisted`` at ``batch`` streams on a static
     carry, fed one frame of a chunk's precompute at a time: the scan
@@ -204,8 +240,7 @@ class ScanProgram:
         dev = engine.device
         z = lambda *shape, dtype=torch.float32: torch.zeros((batch,) + shape, dtype=dtype, device=dev)
         self.carry = init_carry(engine.model.meta, batch, dev)
-        self.pre = FramePre(filtered=z(FRAME_SIZE), cand=z(N_CAND), x=z(2 * FREQ_SIZE),
-                            ex=z(NB_BANDS), silence=z(dtype=torch.bool), ceps=z(NB_BANDS))
+        self.pre = _pre_slot(batch, dev)
         self.out, self.vad = z(FRAME_SIZE), z()
 
         def step():
@@ -239,3 +274,79 @@ class ScanProgram:
                 gains[:, t].copy_(self.carry.feat.pitch_gain)
         result = (snapshot(self.carry), out, vad)
         return (*result, (periods, gains)) if return_trace else result
+
+
+class FeatureProgram:
+    """``pipeline.analyze_frame_hoisted`` at ``batch`` streams on a static
+    :class:`FeatureState`, fed one frame of a chunk's precompute at a time:
+    the generator's frame loop, as ``_feature_chunk``'s ``lax.scan`` is the
+    JAX package's.  A frame issues its six slot copies, one replay (K6
+    inside) and the copy of its features.  The graph does not depend on the
+    chunk's length."""
+
+    def __init__(self, batch: int, device):
+        dev = torch.device(device)
+        self.state = init_feature_state(batch, dev)
+        self.pre = _pre_slot(batch, dev)
+        self.features = torch.zeros((batch, NB_FEATURES), dtype=torch.float32, device=dev)
+
+        def step():
+            state, an = analyze_frame_hoisted(self.state, self.pre)
+            assign(self.state, state)
+            self.features.copy_(an.features)
+
+        self.program = StepProgram(step, leaves(self.state), dev)
+
+    def __call__(self, state: FeatureState, pre: FramePre):
+        """The T frames of ``pre`` (time-major (T, B, ...) with the lag-0
+        fields; strided views are fine) from ``state`` -> (state' (its own
+        tensors), features (B, T, 42))."""
+        assign(self.state, state)
+        b, t_count = self.features.shape[0], pre.filtered.shape[0]
+        feats = torch.empty((b, t_count, NB_FEATURES), dtype=torch.float32, device=self.features.device)
+        for t in range(t_count):
+            for slot, field in zip(self.pre, pre, strict=True):
+                slot.copy_(field[t])
+            self.program()
+            feats[:, t].copy_(self.features)
+        return snapshot(self.state), feats
+
+
+class TrainProgram:
+    """A train step on a static (B,) index vector: ``fit``'s program, as the
+    jitted ``train_step_indexed`` is the JAX package's.  ``step(idx)`` runs
+    one step of ``model`` under ``opt`` on the rows ``idx`` and returns the
+    loss (``training.train.train_step_indexed`` on the device's dataset);
+    one replay is its forward over the whole sequence, the backward, the
+    optimizer's update and whatever else it launches, in the eager order.
+
+    The program's state is the model's parameters, every tensor of the
+    optimizer's state and each group's learning rate, all of which must
+    exist before the first call (``training.train.make_optimizer`` creates
+    Adam's state, zero, and keeps the learning rate in a 0-d tensor): the
+    warm-up step puts them back as it found them, so the first replay is
+    the first update.  The gradients are left to the capture: the step sets
+    them to None before its backward, which then allocates them in the
+    graph's pool, and every replay writes them anew.  On a card the
+    optimizer must be capturable (no host read of its step count).
+    """
+
+    def __init__(self, step, model, opt, batch_size: int):
+        params = list(model.parameters())
+        dev = params[0].device
+        self.idx = torch.zeros(batch_size, dtype=torch.int64, device=dev)
+        self.loss = torch.zeros((), dtype=torch.float32, device=dev)
+
+        def run():
+            self.loss.copy_(step(self.idx))
+
+        opt_state = [t for p in params for t in opt.state[p].values() if isinstance(t, torch.Tensor)]
+        lrs = [g["lr"] for g in opt.param_groups if isinstance(g["lr"], torch.Tensor)]
+        self.program = StepProgram(run, params + opt_state + lrs, dev)
+
+    def __call__(self, idx: torch.Tensor) -> torch.Tensor:
+        """One step on the rows ``idx`` (B,) (int64, on the device) -> the
+        loss, a 0-d tensor the next call overwrites."""
+        self.idx.copy_(idx)
+        self.program()
+        return self.loss

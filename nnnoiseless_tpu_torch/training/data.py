@@ -12,7 +12,8 @@ the WAV I/O and the cheap random mixing; the three feature pipelines of a
 world (clean, noise, combined) run on the device as one batch, a chunk of
 frames at a time: ``chunk.precompute_chunk`` (kernel K1 on CUDA) over all
 streams, then a loop over frames of ``pipeline.analyze_frame_hoisted``
-(kernel K6 on CUDA) on the combined streams only.
+(kernel K6 on CUDA) on the combined streams only, one replay a frame of a
+``programs.FeatureProgram`` (a CUDA graph on a card).
 
 Usage::
 
@@ -44,7 +45,8 @@ from ..constants import (
     PITCH_BUF_SIZE,
 )
 from ..denoise import check_device
-from ..pipeline import FeatureState, FramePre, analyze_frame_hoisted, init_feature_state
+from ..pipeline import FeatureState, FramePre, init_feature_state
+from ..programs import FeatureProgram
 
 GAIN_CHANGE_COUNT = 2821  # frames between re-randomizations (training.rs:17)
 
@@ -331,7 +333,7 @@ class NoiseSimulator:
 # --------------------------------------------------------------------------
 
 
-def _feature_chunk(states: FeatureState, frames: torch.Tensor):
+def _feature_chunk(states: FeatureState, frames: torch.Tensor, frame_loop=None):
     """Batched hoisted analysis over w worlds of (clean, noise) streams.
 
     ``frames`` is (2w, T, 480) on the device — each world's clean and noise
@@ -347,6 +349,10 @@ def _feature_chunk(states: FeatureState, frames: torch.Tensor):
     K6, the cepstral register) on the combined third only: the clean and
     noise streams contribute just their lag-0 band energies.
 
+    ``frame_loop``: that loop, (state (w, ...), precompute (T, w, ...)) ->
+    (state', features (w, T, 42)): a :class:`programs.FeatureProgram` of w
+    streams, reused across chunks (one is made for this call when None).
+
     Returns (states', features (w,T,42), ex (3w,T,22), silence (w,T)).
     """
     w2, t, _ = frames.shape
@@ -357,10 +363,7 @@ def _feature_chunk(states: FeatureState, frames: torch.Tensor):
 
     pre_c = FramePre(*(f[:, 2::3] for f in pre))  # time-major: (T, w, ...)
     st_c = FeatureState(*(a[2::3] for a in states))
-    feats = []
-    for i in range(t):
-        st_c, an = analyze_frame_hoisted(st_c, FramePre(*(f[i] for f in pre_c)))
-        feats.append(an.features)
+    st_c, feats = (frame_loop or FeatureProgram(w, frames.device))(st_c, pre_c)
 
     # input_mem rolls forward identically for every stream (it is updated
     # unconditionally) — rebuild it for all 3w from the chunk's last
@@ -372,7 +375,7 @@ def _feature_chunk(states: FeatureState, frames: torch.Tensor):
     pitch_period[2::3] = st_c.pitch_period
     pitch_gain[2::3] = st_c.pitch_gain
     states = FeatureState(new_mem.contiguous(), hp_out, cepstral_mem, pitch_period, pitch_gain)
-    return states, torch.stack(feats, 1), pre.ex.transpose(0, 1), pre.silence[:, 2::3].transpose(0, 1)
+    return states, feats, pre.ex.transpose(0, 1), pre.silence[:, 2::3].transpose(0, 1)
 
 
 def _make_worlds(signal_paths: List[str], noise_paths: List[str], per: int, seed: int, w: int) -> list:
@@ -437,9 +440,13 @@ def generate(
     continuous streams).
 
     A 1-deep pipeline: the device works on chunk k while the host mixes
-    chunk k+1; chunk k is read back after that.  ``timing``, if given, is
-    filled with {"device_s", "host_s"}: wall time spent dispatching chunks
-    and reading them back, and in the host-side noise simulator.
+    chunk k+1.  Chunk k's readback is queued right behind its work (into
+    pinned buffers on a card, with an event), so reading it back after
+    chunk k+1 is dispatched waits for chunk k only.  The frame loop is one
+    :class:`programs.FeatureProgram` for the whole call.  ``timing``, if
+    given, is filled with {"device_s", "host_s"}: wall time spent
+    dispatching chunks and waiting for their readback, and in the
+    host-side noise simulator.
     """
     device = check_device(device)
     w = max(1, int(workers))
@@ -460,11 +467,30 @@ def generate(
 
         pool = ThreadPoolExecutor(min(w, n_cores))
 
-    def finish(start, n, cutoffs, vads, feats, ex, sil):
-        """Read back one dispatched chunk and write its n rows."""
-        feats = feats.cpu().numpy()
-        ex = ex.cpu().numpy().reshape(w, 3, n, NB_BANDS)
-        sil = sil.cpu().numpy()
+    program = FeatureProgram(w, device)
+    pin = device.type == "cuda"
+
+    def dispatch(frames):
+        """Queue one chunk's work and its readback: (host tensors of
+        features, ex and silence, the event that marks the readback done)."""
+        nonlocal states
+        states, *out = _feature_chunk(
+            states, torch.from_numpy(frames.reshape(2 * w, -1, FRAME_SIZE)).to(device), program)
+        host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=pin) for o in out]
+        for h, o in zip(host, out):
+            h.copy_(o, non_blocking=True)
+        event = None
+        if pin:
+            event = torch.cuda.Event()
+            event.record()
+        return host, event
+
+    def finish(start, n, cutoffs, vads, host, event):
+        """Wait for one dispatched chunk's readback and write its n rows."""
+        if event is not None:
+            event.synchronize()
+        feats, ex, sil = (h.numpy() for h in host)
+        ex = ex.reshape(w, 3, n, NB_BANDS)
 
         clean_ex, noise_ex, comb_ex = ex[:, 0], ex[:, 1], ex[:, 2]
         cut = np.where(sil, 0, cutoffs)[..., None]  # silence -> sentinel
@@ -495,11 +521,8 @@ def generate(
                 t_dispatch = time.perf_counter()
                 host_s += t_dispatch - t_host
                 # only the clean and noise streams cross to the device
-                states, feats, ex, sil = _feature_chunk(
-                    states, torch.from_numpy(frames.reshape(2 * w, n, FRAME_SIZE)).to(device)
-                )
+                inflight = (done, n, cutoffs, vads, *dispatch(frames))
                 dev_s += time.perf_counter() - t_dispatch
-                inflight = (done, n, cutoffs, vads, feats, ex, sil)
                 done += n
             if pending is not None:
                 t_fin = time.perf_counter()

@@ -5,9 +5,11 @@ The counterpart of ``nnnoiseless_tpu/training/train.py``, the equivalent of
 train/rnn_train.py (same topology, losses, loss weights, sequence length
 2000, batch 32, sample reweighting by mean gain tertile).  The dataset goes
 to the device once; each step gathers its batch there from a (B,) index
-vector (:func:`train_step_indexed`).  Over a mesh every rank holds the whole
-dataset and takes its slice of each step's index vector, and one all-reduce
-a step makes the step that of the global batch (:func:`train_step_dp`).
+vector (:func:`train_step_indexed`).  Without a mesh the step runs as a
+``programs.TrainProgram``: on a card one captured CUDA graph a step (Adam
+``capturable``).  Over a mesh every rank holds the whole dataset and takes
+its slice of each step's index vector, and one all-reduce a step makes the
+step that of the global batch (:func:`train_step_dp`, eager).
 
 Usage::
 
@@ -30,6 +32,7 @@ import torch.distributed as dist
 from ..constants import NB_BANDS, NB_FEATURES
 from ..denoise import check_device
 from ..model import ModelMeta
+from ..programs import TrainProgram
 from .losses import l2_regularization, total_loss
 from .network import (
     DEFAULT_META,
@@ -44,33 +47,67 @@ from .network import (
 
 def make_optimizer(model: TrainableModel, learning_rate: float = 1e-3,
                    cosine_steps: Optional[int] = None) -> torch.optim.Adam:
-    """Adam with optax's ``adam`` defaults (b1 0.9, b2 0.999, eps 1e-8).
+    """Adam with optax's ``adam`` defaults (b1 0.9, b2 0.999, eps 1e-8), set
+    up for the device of ``model``'s parameters (move the model first).
 
-    The learning rate lives in ``param_groups`` (optax's
-    ``inject_hyperparams``: change ``opt.param_groups[0]["lr"]`` mid-run).
-    With ``cosine_steps`` it follows ``optax.cosine_decay_schedule(
-    learning_rate, cosine_steps)`` (alpha 0) instead, set before each update
-    from the updates taken so far, so the first update uses the schedule at
-    0, as optax's does.
+    On a card it is ``capturable``: its update count and bias corrections
+    stay on the device, so a step can be captured in a CUDA graph
+    (``programs.TrainProgram``), and the eager steps run the same
+    arithmetic.  On the CPU it is not (capturable Adam refuses CPU
+    tensors).  Adam's state (``step``, ``exp_avg``, ``exp_avg_sq``) is
+    created here, zero, so that a captured step finds it in place.
+
+    The learning rate is a 0-d float32 tensor on that device,
+    ``opt.param_groups[0]["lr"]``, which every step reads (optax's
+    ``inject_hyperparams``).  To change it mid-run, write the tensor in
+    place: ``opt.param_groups[0]["lr"].fill_(new_lr)``.  Assigning a new
+    float or tensor to the group instead would not reach a step already
+    captured.  With ``cosine_steps`` the step itself sets it before each
+    update to ``optax.cosine_decay_schedule(learning_rate,
+    cosine_steps)`` (alpha 0) at Adam's own update count, computed on the
+    device, so the first update uses the schedule at 0, as optax's does.
     """
-    return torch.optim.Adam(
+    opt = torch.optim.Adam(
         [{"params": list(model.parameters()), "base_lr": learning_rate, "cosine_steps": cosine_steps}],
         lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
     )
+    _adam_for_device(opt)
+    return opt
+
+
+def _adam_for_device(opt: torch.optim.Adam) -> None:
+    """Adam's settings and state for its parameters' device: capturable on a
+    card only, the learning rate a 0-d float32 tensor there, each
+    parameter's state present (zero before the first update) with its
+    update count a 0-d float32 tensor on that device."""
+    for group in opt.param_groups:
+        dev = group["params"][0].device
+        group["capturable"] = dev.type == "cuda"
+        group["lr"] = torch.tensor(float(group["lr"]), dtype=torch.float32, device=dev)
+        for p in group["params"]:
+            state = opt.state[p]
+            state["step"] = torch.tensor(float(state.get("step", 0.0)), dtype=torch.float32, device=dev)
+            for key in ("exp_avg", "exp_avg_sq"):
+                if key not in state:
+                    state[key] = torch.zeros_like(p, memory_format=torch.preserve_format)
 
 
 def updates_taken(opt: torch.optim.Adam) -> int:
-    """Adam's update count (its per-parameter ``step``), 0 before the first."""
+    """Adam's update count (its per-parameter ``step``), 0 before the first.
+    A host read of the device: for checkpoints and tests, not for a step."""
     state = opt.state.get(opt.param_groups[0]["params"][0], {})
     return int(state["step"]) if "step" in state else 0
 
 
 def _apply_schedule(opt: torch.optim.Adam) -> None:
+    """Set each cosine group's learning rate in place from Adam's update
+    count, on the device (no host read, so a captured step recomputes it
+    at every replay)."""
     for group in opt.param_groups:
         steps = group["cosine_steps"]
         if steps is not None:
-            count = min(updates_taken(opt), steps)
-            group["lr"] = group["base_lr"] * 0.5 * (1.0 + math.cos(math.pi * count / steps))
+            count = opt.state[group["params"][0]]["step"].clamp(max=steps)
+            group["lr"].copy_(group["base_lr"] * (0.5 * (1.0 + torch.cos(math.pi * count / steps))))
 
 
 def train_step(model: TrainableModel, opt: torch.optim.Adam, batch: dict,
@@ -208,7 +245,11 @@ def restore_checkpoint(path, model: TrainableModel, opt: torch.optim.Adam) -> in
     A checkpoint resumes only under the optimizer configuration it was
     saved with: a constant learning rate against a cosine schedule, or
     another topology, raises ValueError instead of mis-restoring.  Adam's
-    settings, the learning rate and the schedule come from the checkpoint.
+    settings, the learning rate and the schedule come from the checkpoint,
+    but ``capturable`` from the device (a checkpoint written on a card
+    resumes on the CPU, and one written on the CPU can be captured on a
+    card).  Restore before building a ``TrainProgram`` over ``opt``: the
+    load replaces Adam's state tensors.
     """
     p = pathlib.Path(path).resolve()
     if not p.name.startswith("step_"):
@@ -229,6 +270,7 @@ def restore_checkpoint(path, model: TrainableModel, opt: torch.optim.Adam) -> in
         opt.load_state_dict(ckpt["optimizer"])
     except (KeyError, RuntimeError, ValueError) as e:
         raise ValueError(f"checkpoint {p} does not match the current training configuration: {e}") from e
+    _adam_for_device(opt)
     return int(ckpt["step"])
 
 
@@ -260,6 +302,12 @@ def fit(
     collects (step, loss) pairs, read back from the device once at the end.
     A run resumed from a checkpoint takes its epochs again from the saved
     step.
+
+    Without a mesh each step is one call of a :class:`programs.TrainProgram`
+    of :func:`train_step_indexed`, built once a call: on a card a CUDA graph
+    captured at the first step and replayed (a capture or replay that fails
+    raises), on the CPU the eager step.  Each epoch's permutation is
+    uploaded once; a step copies its slice into the program's index vector.
 
     ``mesh``: a 1-D ``torch.distributed`` DeviceMesh with the dim name
     "dp" for data parallelism, one process a rank (gloo on the CPU, NCCL
@@ -302,21 +350,23 @@ def fit(
     rng = np.random.RandomState(seed)
     data = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
             for k, v in (("features", features), ("gains", gains), ("vad", vad))}
+    if mesh is None:
+        program = TrainProgram(lambda idx: train_step_indexed(model, opt, data, idx, seq_w), model, opt, batch_size)
 
     pending: list = []
     done = 0
     for epoch in range(epochs):
-        perm = rng.permutation(n)
+        perm = torch.as_tensor(rng.permutation(n), device=device)
         for i in range(0, n - batch_size + 1, batch_size):
-            idx = torch.as_tensor(perm[i : i + batch_size], device=device)
+            idx = perm[i : i + batch_size]
             if mesh is None:
-                loss = train_step_indexed(model, opt, data, idx, seq_w)
+                loss = program(idx)
             else:
                 loss = train_step_dp(model, opt, data, idx, seq_w, mesh)
             if done % log_every == 0 and rank == 0:
                 print(f"epoch {epoch} step {done} loss {float(loss):.5f}")
             if history is not None:
-                pending.append((done, loss))
+                pending.append((done, loss.clone()))  # the program's loss is overwritten by the next step
             done += 1
             step += 1
             if checkpoint_dir and done % checkpoint_every == 0 and rank == 0:

@@ -13,7 +13,11 @@
    against its plain version on all 409,600 windows of that input, under
    phase 3's bars but for a pidx step over 2 on at most 0.01% of the
    windows, each a near-tie of the search (a float64 margin under 1e-4,
-   printed): at this size f32 rounding meets such ties;
+   printed): at this size f32 rounding meets such ties; one eager
+   two-phase chunk (denoise.process_chunk) at B=4096 and at B=64, T=100:
+   its wall time to the sync (mean and least of 20) and, by
+   torch.profiler, its host launches, device operations and the device's
+   busy share of that wall time;
 7. K3 (stacked pitch), K5 (RNN cell) and K6 (pitch-lag window) against
    their plain versions at B=4096 and B=1 (K5 and K6 also at B=1061, a
    ragged last block of K5's 32-stream tile, 1024 and 64): each kernel's
@@ -90,18 +94,19 @@
    it parts with K1's pitch index flips and their float64 margins);
    generate at workers=96, chunk=625 for 120,000 rows after a warm-up
    (rows/s, device_s, host_s); the float network and its loss gradient at
-   B=4, T=200 on the card against the CPU; the train step at batch 32 x
-   2000 (60 sequences of the rows) as a programs.TrainProgram: the warm-up
-   and capture seconds, the pool, 3 replays bit-equal to 3 eager steps
-   (capturable Adam) from the same params, ms a step over 5 replays beside
-   the eager steps', one replay's host launches, device operations and
-   kernels by torch.profiler; the same 3 steps at B=4, T=200, the card's
-   graph against the CPU, within tests/test_torch_training.py's bars
-   (losses 1e-5 relative, parameters rtol 1e-4 and atol 1e-5; the worst
-   leaf's elements printed on a miss); fit for 5 steps (ms a step with its
-   capture, the losses, the weight clip); the int8 export through
-   denoise_audio (K1, K2) on a 2 s mix against the CPU under the golden
-   bars;
+   B=4, T=200 on the card against the CPU; fit at batch 32 x 2000 (60
+   sequences of the rows) for 5 steps, its programs.TrainProgram kept:
+   one warm-up and one replay a step, ms a step with its capture, the
+   losses, the weight clip, the warm-up and capture seconds, the pool;
+   that program put back to fit's first state, 3 replays bit-equal to 3
+   eager steps (capturable Adam) from the same params, ms a step over 5
+   replays beside the eager steps', one replay's host launches, device
+   operations and kernels by torch.profiler; the same 3 steps at B=4,
+   T=200, the card's graph against the CPU, within
+   tests/test_torch_training.py's bars (losses 1e-5 relative, parameters
+   rtol 1e-4 and atol 1e-5; the worst leaf's elements printed on a miss);
+   the int8 export through denoise_audio (K1, K2) on a 2 s mix against
+   the CPU under the golden bars;
 18. the multi-device split (nnnoiseless_tpu_torch.parallel) at phase 6's
    size, B=4096, T=100, on phase 6's input: sharded_process_frames over
    make_mesh() (every card present) and over 2 and 4 entries on cuda:0,
@@ -111,10 +116,19 @@
    vad 1e-3; bit-equality printed), K1 and K2 once a shard a chunk, every
    carry slice on its entry's device, and the time a chunk of each mesh
    beside the unsharded chunk's, timed before and after them (CUDA
-   events, the mean of 3 after a warm-up); then fit at batch 32 x 2000
-   for 2 steps over a 1-rank NCCL DeviceMesh (a FileStore, no network)
-   against fit with mesh=None from the same seed: parameters within 1e-6
-   of each leaf's scale (bit-equality printed), ms a step of both.
+   events, the mean of 3 after a warm-up); then fit on phase 17's rows at
+   batch 32 x 2000 for 5 steps over a 1-rank NCCL DeviceMesh (a
+   FileStore, no network; fit is the group's first user) against phase
+   17's fit with mesh=None: one TrainProgram of train_step_dp, one warm-up
+   step and one graph replay a step, the all-reduce inside the graph
+   (warm-up and capture seconds, pool), parameters within 1e-6 of each
+   leaf's scale (bit-equality and equal losses printed), fit's wall a step
+   (capture included); then that program, its state put back to fit's
+   first, replayed 3 times against 3 eager train_step_dp steps from the
+   same state (bit-equal), ms a step over 5 replays beside the eager
+   data-parallel steps' and phase 17's one-device program's, one replay's
+   host launches (at most 3), device operations and NCCL kernels (at
+   least 1) by torch.profiler.
 
 Any failure exits non-zero before the last line.  The last two lines are a
 JSON object with each kernel's launches, error, times and bound, and
@@ -149,6 +163,8 @@ K2_BATCH = 130
 GOLDEN_BATCH = 128
 REAL_SHAPE = (4096, 100)
 TIMED_CHUNKS = 3
+SMALL_CHUNK_BATCH = 64  # phase 6 also profiles an eager two-phase chunk at this B
+WALL_CHUNKS = 20  # ... after timing this many on the host clock
 LATENCY_PASSES = 2  # timed passes over the golden clip in phase 8
 CUSTOM_SHAPE = (8, 20)  # (B, T) of phase 10
 K4_SMALL = 100  # rows of phase 11's small shape
@@ -194,11 +210,11 @@ GEN_FEAT_BAR = 1e-4  # the CPU test's feature bar against the JAX generator
 GEN_FLIP_STREAMS = 2  # combined streams whose features may part at a pitch decision flip
 SERVE_SECONDS = 2.0
 # phase 18: the meshes beyond make_mesh()'s (entries on cuda:0), the split's
-# bars (tests/test_parallel.py's), the data-parallel trainer's steps and bar
+# bars (tests/test_parallel.py's), the data-parallel trainer's bars
 MESH_SHARDS = (2, 4)
 SPLIT_OUT_BAR, SPLIT_VAD_BAR = 1.0, 1e-3
-DP_STEPS = 2
 DP_BAR = 1e-6  # of each leaf's largest magnitude
+DP_LAUNCH_BAR = 3  # host launches a replay of the data-parallel program
 # phase 9: the CUDA runtime calls torch.profiler records that put work on
 # the card, and the most of them the graphed scan engine may issue a frame
 HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
@@ -619,9 +635,89 @@ def custom_model(nt, seed: int):
     return nt.RnnModel(params, ModelMeta(*(LayerMeta(n_in, n, a) for _, n_in, n, a in layers)))
 
 
-def training_phase(torch, dev, card: str, reset_counts, counts) -> None:
+def kept_fit(torch, arrays: dict, **kw):
+    """``fit(*arrays.values(), **kw)`` with the TrainProgram it builds kept
+    after it returns: (params, history, the program, ms a step of fit's
+    wall by CUDA events: init, upload, the capture and readback included).
+    The program also holds ``model`` and ``start``, copies of the state it
+    starts from, so that it can be replayed again from fit's first step."""
+    from nnnoiseless_tpu_torch import programs
+    from nnnoiseless_tpu_torch.training import train as train_mod
+
+    built = []
+
+    class KeptProgram(programs.TrainProgram):
+        def __init__(self, step, model, opt, batch_size):
+            super().__init__(step, model, opt, batch_size)
+            self.model = model
+            self.start = [t.detach().clone() for t in self.program.state]
+            built.append(self)
+
+    history = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    train_mod.TrainProgram = KeptProgram
+    try:
+        start.record()
+        params = train_mod.fit(*arrays.values(), history=history, **kw)
+        end.record()
+        end.synchronize()
+    finally:
+        train_mod.TrainProgram = programs.TrainProgram
+    if len(built) != 1:
+        raise RuntimeError(f"fit built {len(built)} train programs, not one")
+    return params, history, built[0], start.elapsed_time(end) / max(len(history), 1)
+
+
+def replays_against_eager(torch, prog, eager_model, eager_step, step_idx) -> dict:
+    """``prog`` (from kept_fit), its state put back to fit's first, replayed
+    once for each of ``step_idx`` against ``eager_step`` (idx -> loss) of
+    ``eager_model``, which starts from the same state; then TRAIN_STEPS
+    replays timed and one under torch.profiler.  Returns {bit (losses and
+    parameters equal), profile_s (the profiled replay's wall seconds,
+    tracing and its reading included), losses, eager_ms, replay_ms, host
+    (HOST_LAUNCHES by name), dev_ops, kernels, nccl (device operations
+    named nccl), busy}."""
+    with torch.no_grad():
+        for t, s in zip(prog.program.state, prog.start):
+            t.copy_(s)
+    losses_g = torch.stack([prog(idx).clone() for idx in step_idx])
+    params_g = [q.detach().clone() for q in prog.model.parameters()]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    losses_e, eager_ms = [], []
+    for idx in step_idx:
+        start.record()
+        losses_e.append(eager_step(idx))
+        end.record()
+        end.synchronize()
+        eager_ms.append(start.elapsed_time(end))
+    bit = torch.equal(losses_g, torch.stack(losses_e)) and all(
+        torch.equal(x, y) for x, y in zip(params_g, eager_model.parameters()))
+    start.record()
+    for k in range(TRAIN_STEPS):
+        prog(step_idx[k % len(step_idx)])
+    end.record()
+    end.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        prog(step_idx[0])
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    on_dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"bit": bit, "profile_s": time.perf_counter() - t0, "losses": losses_g, "eager_ms": eager_ms, "replay_ms": start.elapsed_time(end) / TRAIN_STEPS,
+            "host": {e.key: e.count for e in events if e.key in HOST_LAUNCHES},
+            "dev_ops": sum(e.count for e in on_dev),
+            "kernels": sum(e.count for e in on_dev if not e.key.startswith(("Memcpy", "Memset"))),
+            "nccl": sum(e.count for e in on_dev if "nccl" in e.key.lower()),
+            "busy": sum(e.self_device_time_total for e in on_dev) / 1e3}
+
+
+def training_phase(torch, dev, card: str, reset_counts, counts) -> dict:
     """Phase 17, the training path (see the module docstring).  Raises on
-    any failed bar."""
+    any failed bar.  Returns what phase 18's data-parallel trainer is held
+    to: the trainer's rows (``arrays``), ``fit``'s keywords, parameters and
+    history, the graph steps' index vectors, and the one-device program's
+    ms a step (replays, and the eager steps beside them)."""
     import copy
     import os
     from concurrent.futures import ThreadPoolExecutor
@@ -641,9 +737,7 @@ def training_phase(torch, dev, card: str, reset_counts, counts) -> None:
     from nnnoiseless_tpu_torch.training.network import (
         WEIGHT_CLIP, export_model, init_train_params, sequence_forward,
     )
-    from nnnoiseless_tpu_torch.training.train import (
-        compute_sample_weights, fit, make_optimizer, train_step_indexed,
-    )
+    from nnnoiseless_tpu_torch.training.train import compute_sample_weights, make_optimizer, train_step_indexed
 
     ts = _load_synth()
     failures = []  # every bar is read before the phase fails, so that one run shows them all
@@ -801,13 +895,53 @@ def training_phase(torch, dev, card: str, reset_counts, counts) -> None:
         if not (fwd_err <= 1e-5 and grad_rel[worst] <= 1e-4):
             failures.append("the trainer on the card disagrees with the CPU")
 
-        # ---- the train step as one captured graph, at full width ----
+        # ---- fit at full width: one captured graph a step ----
+        fit_kw = dict(batch_size=TRAIN_BATCH, seed=17, log_every=10 ** 6, device=dev)
+        params, history, prog, step_ms = kept_fit(torch, arrays, epochs=TRAIN_STEPS, **fit_kw)
+        tp = prog.program
+        fit_calls = (tp.warmups, tp.replays)
+        losses = [l for _, l in history]
+        clip = max(float(np.abs(a).max()) for layer in params.values() for a in layer.values())
+        print(f"[17] fit at batch {TRAIN_BATCH} x {TRAIN_WINDOW} on {n_seq} sequences: {step_ms:.1f} ms a step "
+              f"(CUDA events around fit of {len(history)} steps: init, upload, the capture and readback included); "
+              f"(warm-up steps, replays) {fit_calls}; losses {', '.join(f'{l:.4f}' for l in losses)}; largest "
+              f"|weight| {clip:.4f} ({card})")
+        if len(history) != TRAIN_STEPS or not np.all(np.isfinite(losses)) or clip > WEIGHT_CLIP:
+            failures.append("the trainer's losses are not finite or a weight passed the clip")
+        if fit_calls != (1, TRAIN_STEPS):
+            failures.append(f"fit did not run one program replay a step: {fit_calls}")
+
+        # its graph, put back to fit's first state, against eager capturable
+        # steps from the same params (fit's first index vectors)
         on_dev = {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
         seq_w = torch.as_tensor(compute_sample_weights(arrays["gains"]), device=dev)
         perm_rng = np.random.RandomState(17)
         step_idx = [torch.as_tensor(perm_rng.permutation(n_seq)[:TRAIN_BATCH], device=dev)
                     for _ in range(GRAPH_STEPS)]
+        model_e = init_train_params(torch.Generator().manual_seed(17)).to(dev)
+        opt_e = make_optimizer(model_e)
+        r = replays_against_eager(torch, prog, model_e, lambda idx: train_step_indexed(model_e, opt_e, on_dev, idx, seq_w),
+                                  step_idx)
+        print(f"[17] the train step at batch {TRAIN_BATCH} x {TRAIN_WINDOW} as one CUDA graph (fit's): warm-up step "
+              f"{tp.warmup_s:.2f} s, capture and instantiation {tp.capture_s:.2f} s, pool {tp.pool_bytes / 2 ** 20:.1f} "
+              f"MiB; {r['replay_ms']:.1f} ms a step over {TRAIN_STEPS} replays (CUDA events), eager capturable steps "
+              f"{', '.join(f'{m:.1f}' for m in r['eager_ms'])} ms; one replay by torch.profiler: host launches "
+              f"{sum(r['host'].values())} {r['host']}, device operations {r['dev_ops'] or 'not traced'}, "
+              f"{r['kernels']} of them kernels (the captured kernels), device busy {r['busy']:.1f} ms; profiled in "
+              f"{r['profile_s']:.1f} s ({card})")
+        print(f"[17] {GRAPH_STEPS} graph steps from fit's first state against {GRAPH_STEPS} eager capturable steps "
+              f"from the same params: bit-equal {r['bit']} (losses {', '.join(f'{float(l):.6f}' for l in r['losses'])})")
+        if not r["bit"]:
+            failures.append("the train step's graph is not bit-equal to the eager capturable steps")
+        if not r["dev_ops"]:
+            failures.append("torch.profiler saw no device operation in a replay of the train step")
+        trained = {"arrays": arrays, "fit_kw": fit_kw, "fit_params": params, "fit_history": history,
+                   "step_idx": [idx.cpu() for idx in step_idx], "replay_ms": r["replay_ms"],
+                   "eager_ms": r["eager_ms"]}
+        del prog, tp, model_e, opt_e, on_dev, r
+        torch.cuda.empty_cache()
 
+        # 3 steps at GRAD_SHAPE, the card (its graph) against the CPU
         def trainer(where, data, weights, batch):
             model = init_train_params(torch.Generator().manual_seed(17)).to(where)
             opt = make_optimizer(model)
@@ -815,53 +949,6 @@ def training_phase(torch, dev, card: str, reset_counts, counts) -> None:
                                          model, opt, batch)
             return model, opt, prog
 
-        model_g, _, prog = trainer(dev, on_dev, seq_w, TRAIN_BATCH)
-        losses_g = torch.stack([prog(idx).clone() for idx in step_idx])
-        params_g = [q.detach().clone() for q in model_g.parameters()]
-        torch.cuda.synchronize()
-        tp = prog.program
-        model_e, opt_e, _ = trainer(dev, on_dev, seq_w, TRAIN_BATCH)
-        losses_e, eager_ms = [], []
-        for idx in step_idx:
-            start.record()
-            losses_e.append(train_step_indexed(model_e, opt_e, on_dev, idx, seq_w))
-            end.record()
-            end.synchronize()
-            eager_ms.append(start.elapsed_time(end))
-        bit_train = torch.equal(losses_g, torch.stack(losses_e)) and all(
-            torch.equal(x, y) for x, y in zip(params_g, model_e.parameters()))
-        start.record()
-        for k in range(TRAIN_STEPS):
-            prog(step_idx[k % GRAPH_STEPS])
-        end.record()
-        end.synchronize()
-        replay_ms = start.elapsed_time(end) / TRAIN_STEPS
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            prog(step_idx[0])
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        host = {e.key: e.count for e in events if e.key in HOST_LAUNCHES}
-        dev_events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_ops = sum(e.count for e in dev_events)
-        kernels = sum(e.count for e in dev_events if not e.key.startswith(("Memcpy", "Memset")))
-        busy = sum(e.self_device_time_total for e in dev_events) / 1e3
-        print(f"[17] the train step at batch {TRAIN_BATCH} x {TRAIN_WINDOW} as one CUDA graph: warm-up step "
-              f"{tp.warmup_s:.2f} s, capture and instantiation {tp.capture_s:.2f} s, pool {tp.pool_bytes / 2 ** 20:.1f} "
-              f"MiB; {replay_ms:.1f} ms a step over {TRAIN_STEPS} replays (CUDA events), eager capturable steps "
-              f"{', '.join(f'{m:.1f}' for m in eager_ms)} ms; one replay by torch.profiler: host launches "
-              f"{sum(host.values())} {host}, device operations {dev_ops or 'not traced'}, {kernels} of them kernels "
-              f"(the captured kernels), device busy {busy:.1f} ms ({card})")
-        print(f"[17] {GRAPH_STEPS} graph steps against {GRAPH_STEPS} eager capturable steps from the same params: "
-              f"bit-equal {bit_train} (losses {', '.join(f'{float(l):.6f}' for l in losses_g)})")
-        if not bit_train:
-            failures.append("the train step's graph is not bit-equal to the eager capturable steps")
-        if not dev_ops:
-            failures.append("torch.profiler saw no device operation in a replay of the train step")
-        del prog, tp, model_g, model_e, opt_e, params_g
-        torch.cuda.empty_cache()
-
-        # the same steps at GRAD_SHAPE, the card (its graph) against the CPU
         sub = {k: np.ascontiguousarray(v[: GRAPH_STEPS * gb, :gt]) for k, v in arrays.items()}
         sub_w = compute_sample_weights(sub["gains"])
         small = {}
@@ -884,21 +971,7 @@ def training_phase(torch, dev, card: str, reset_counts, counts) -> None:
                 print(f"[17]   {worst}{i}: card {float(p_card[worst][tuple(i)]):.9g}, CPU "
                       f"{float(p_cpu[worst][tuple(i)]):.9g}")
             failures.append("the train steps on the card miss the CPU test's bars")
-
-        fit_kw = dict(batch_size=TRAIN_BATCH, seed=17, log_every=10 ** 6, device=dev)
-        history = []
-        start.record()
-        params = fit(*arrays.values(), epochs=TRAIN_STEPS, history=history, **fit_kw)
-        end.record()
-        end.synchronize()
-        step_ms = start.elapsed_time(end) / len(history)
-        losses = [l for _, l in history]
-        clip = max(float(np.abs(a).max()) for layer in params.values() for a in layer.values())
-        print(f"[17] fit at batch {TRAIN_BATCH} x {TRAIN_WINDOW} on {n_seq} sequences: {step_ms:.1f} ms a step "
-              f"(CUDA events around fit of {len(history)} steps: init, upload, the capture and readback included); "
-              f"losses {', '.join(f'{l:.4f}' for l in losses)}; largest |weight| {clip:.4f} ({card})")
-        if len(history) != TRAIN_STEPS or not np.all(np.isfinite(losses)) or clip > WEIGHT_CLIP:
-            failures.append("the trainer's losses are not finite or a weight passed the clip")
+        del small, model, prog
 
         # ---- export and serve ----
         blob = export_model(params).to_bytes()
@@ -924,6 +997,7 @@ def training_phase(torch, dev, card: str, reset_counts, counts) -> None:
             failures.append("the exported model's inference did not launch K1 and K2")
     if failures:
         raise RuntimeError("phase 17: " + "; ".join(failures))
+    return trained
 
 
 def _map_leaves(fn, tree):
@@ -932,10 +1006,11 @@ def _map_leaves(fn, tree):
     return fn(tree)
 
 
-def parallel_phase(torch, dev, card: str, engine, big, reset_counts, counts) -> None:
+def parallel_phase(torch, dev, card: str, engine, big, trained: dict, reset_counts, counts) -> None:
     """Phase 18, the multi-device split and data-parallel fit (see the
-    module docstring).  ``big``: phase 6's input on the card, four chunks.
-    Raises on any failed bar, after every bar is read."""
+    module docstring).  ``big``: phase 6's input on the card, four chunks;
+    ``trained``: what phase 17 returns.  Raises on any failed bar, after
+    every bar is read."""
     import os
 
     import torch.distributed as dist
@@ -949,7 +1024,8 @@ def parallel_phase(torch, dev, card: str, engine, big, reset_counts, counts) -> 
     from nnnoiseless_tpu_torch.ops.biquad import biquad_filter_frames
     from nnnoiseless_tpu_torch.parallel import make_mesh, shard_batch, sharded_process_frames
     from nnnoiseless_tpu_torch.tables import BIQUAD_HP_A, BIQUAD_HP_B
-    from nnnoiseless_tpu_torch.training.train import fit
+    from nnnoiseless_tpu_torch.training.network import init_train_params
+    from nnnoiseless_tpu_torch.training.train import compute_sample_weights, make_optimizer, train_step_dp
 
     b, t = REAL_SHAPE
     chunk = lambda c: big[:, c * t : (c + 1) * t]
@@ -1030,37 +1106,82 @@ def parallel_phase(torch, dev, card: str, engine, big, reset_counts, counts) -> 
         del shard, one, args1, args2
     del carry0, pre, filt, ds, w0, arrays
 
-    # ---- data-parallel fit over a 1-rank NCCL mesh ----
-    rng = np.random.RandomState(18)
-    n_seq = DP_STEPS * TRAIN_BATCH
-    gains = rng.rand(n_seq, TRAIN_WINDOW, 22) ** rng.uniform(0.3, 3.0, (n_seq, 1, 1))  # unequal sample weights
-    arrays = (rng.randn(n_seq, TRAIN_WINDOW, 42).astype(np.float32), gains.astype(np.float32),
-              (rng.rand(n_seq, TRAIN_WINDOW, 1) > 0.5).astype(np.float32))
-    kw = dict(epochs=1, batch_size=TRAIN_BATCH, seed=18, log_every=10 ** 6, device=dev)
+    # ---- data-parallel fit over a 1-rank NCCL mesh, one graph replay a step ----
+    arrays = trained["arrays"]
+    on_dev = {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
+    seq_w = torch.as_tensor(compute_sample_weights(arrays["gains"]), device=dev)
+    step_idx = [idx.to(dev) for idx in trained["step_idx"]]
+    reduces = []  # each all_reduce call: was the current stream being captured?
+    real_all_reduce = dist.all_reduce
 
-    def timed_fit(**extra):
-        start.record()
-        params = fit(*arrays, **kw, **extra)
-        end.record()
-        end.synchronize()
-        return params, start.elapsed_time(end) / DP_STEPS
+    def counted_all_reduce(*args, **kwargs):
+        reduces.append(torch.cuda.is_current_stream_capturing())
+        return real_all_reduce(*args, **kwargs)
 
-    one, one_ms = timed_fit()
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        dist.all_reduce = counted_all_reduce
         try:
-            dp, dp_ms = timed_fit(mesh=init_device_mesh("cuda", (1,), mesh_dim_names=("dp",)))
+            mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("dp",))
+            dp, history, prog, fit_ms = kept_fit(torch, arrays, epochs=TRAIN_STEPS, mesh=mesh, **trained["fit_kw"])
+            tp = prog.program
+            fit_calls = (tp.warmups, tp.replays)
+            fit_reduces = (reduces.count(False), reduces.count(True))
+            one = trained["fit_params"]
+            rel = max(float(np.abs(dp[layer][k] - w).max() / max(float(np.abs(w).max()), 1e-30))
+                      for layer, leaves in one.items() for k, w in leaves.items())
+            bit = all(np.array_equal(dp[layer][k], w) for layer, leaves in one.items() for k, w in leaves.items())
+            same_losses = history == trained["fit_history"]
+            print(f"[18] fit at batch {TRAIN_BATCH} x {TRAIN_WINDOW} over a 1-rank NCCL DeviceMesh, {len(history)} "
+                  f"steps: one TrainProgram, (warm-up steps, replays) {fit_calls}, all_reduce calls (eager, "
+                  f"captured) {fit_reduces}; warm-up step {tp.warmup_s:.2f} s, capture and instantiation "
+                  f"{tp.capture_s:.2f} s (torch.cuda.graph's default mode, global), pool "
+                  f"{tp.pool_bytes / 2 ** 20:.1f} MiB; {fit_ms:.1f} ms a step of fit's wall (CUDA events around fit: "
+                  f"init, upload, the capture and readback included, not a step time); against phase 17's fit with "
+                  f"mesh=None: parameters max |d| over the leaf's max {rel:.3g} (bar {DP_BAR:g}), bit-equal {bit}, "
+                  f"losses equal {same_losses} ({card})")
+            if fit_calls != (1, TRAIN_STEPS) or fit_reduces != (1, 1):
+                failures.append(f"fit over the mesh did not run one replay a step with the all-reduce captured: "
+                                f"{fit_calls}, {fit_reduces}")
+            if not rel <= DP_BAR:
+                failures.append("fit over the 1-rank mesh parts from fit with mesh=None")
+
+            model_e = init_train_params(torch.Generator().manual_seed(trained["fit_kw"]["seed"])).to(dev)
+            opt_e = make_optimizer(model_e)
+            del reduces[:]
+            r = replays_against_eager(torch, prog, model_e,
+                                      lambda idx: train_step_dp(model_e, opt_e, on_dev, idx, seq_w, mesh), step_idx)
+            replay_reduces = len(reduces) - len(step_idx)  # all_reduce calls beyond the eager steps' own
+            flat = torch.zeros(sum(q.numel() for q in model_e.parameters()) + 1, device=dev)
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                real_all_reduce(flat, group=mesh.get_group())
+                torch.cuda.synchronize()
+            eager_nccl = sum(e.count for e in prof.key_averages()
+                             if e.device_type == torch.autograd.DeviceType.CUDA and "nccl" in e.key.lower())
+            print(f"[18] the data-parallel program (fit's): {GRAPH_STEPS} replays from fit's first state against "
+                  f"{GRAPH_STEPS} eager train_step_dp steps from it: bit-equal {r['bit']} (losses "
+                  f"{', '.join(f'{float(l):.6f}' for l in r['losses'])}); {r['replay_ms']:.1f} ms a step over "
+                  f"{TRAIN_STEPS} replays (CUDA events), eager data-parallel steps "
+                  f"{', '.join(f'{m:.1f}' for m in r['eager_ms'])} ms; phase 17's one-device program "
+                  f"{trained['replay_ms']:.1f} ms a replay, its eager steps "
+                  f"{', '.join(f'{m:.1f}' for m in trained['eager_ms'])} ms; all_reduce calls from the host at the "
+                  f"{GRAPH_STEPS + TRAIN_STEPS + 1} replays {replay_reduces}; one replay by torch.profiler: host "
+                  f"launches {sum(r['host'].values())} {r['host']}, device operations {r['dev_ops'] or 'not traced'}, "
+                  f"{r['nccl']} named nccl (an eager all_reduce of the {flat.numel()} floats on this 1-rank group: "
+                  f"{eager_nccl}), device busy {r['busy']:.1f} ms; profiled in {r['profile_s']:.1f} s ({card})")
+            if not r["bit"]:
+                failures.append("the data-parallel program's replays are not bit-equal to eager train_step_dp steps")
+            if replay_reduces:
+                failures.append("a replay of the data-parallel program called all_reduce from the host")
+            if sum(r["host"].values()) > DP_LAUNCH_BAR or not r["dev_ops"]:
+                failures.append(f"a replay of the data-parallel program issued {sum(r['host'].values())} host "
+                                f"launches (at most {DP_LAUNCH_BAR}) or no traced device operation")
+            del prog, tp, model_e, opt_e, r, flat
+            torch.cuda.synchronize()
         finally:
+            dist.all_reduce = real_all_reduce
             dist.destroy_process_group()
-    rel = max(float(np.abs(dp[layer][k] - w).max() / max(float(np.abs(w).max()), 1e-30))
-              for layer, leaves in one.items() for k, w in leaves.items())
-    bit = all(np.array_equal(dp[layer][k], w) for layer, leaves in one.items() for k, w in leaves.items())
-    print(f"[18] fit at batch {TRAIN_BATCH} x {TRAIN_WINDOW}, {DP_STEPS} steps: {one_ms:.1f} ms a step with "
-          f"mesh=None, {dp_ms:.1f} ms over a 1-rank NCCL DeviceMesh (CUDA events around fit: init, upload "
-          f"and readback included); parameters max |d| over the leaf's max {rel:.3g} (bar {DP_BAR:g}), "
-          f"bit-equal {bit} ({card})")
-    if not rel <= DP_BAR:
-        failures.append("fit over the 1-rank mesh parts from fit with mesh=None")
     if failures:
         raise RuntimeError("phase 18: " + "; ".join(failures))
 
@@ -1245,6 +1366,10 @@ def main() -> int:
     dev = torch.device(DEVICE)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+    t_start = time.perf_counter()
+
+    def at(n):
+        print(f"[{n}] starts {time.perf_counter() - t_start:.1f} s into the run")
 
     # ---- 1. environment ------------------------------------------------------
     print(f"[1] card: {card}")
@@ -1257,6 +1382,7 @@ def main() -> int:
     print(f"[1] make: {shutil.which('make')}; {gxx.stdout.splitlines()[0]} (the native engine's build)")
 
     # ---- 2. build --------------------------------------------------------------
+    at(2)
     t0 = time.perf_counter()
     _build.library()
     print(f"[2] kernels built and loaded in {time.perf_counter() - t0:.1f} s "
@@ -1268,6 +1394,7 @@ def main() -> int:
     engine = nt.Engine(nt.RnnModel.default(), dev)
 
     # ---- 3. K1 against its plain version --------------------------------------
+    at(3)
     b3, t3 = K1_SHAPE
     frames = torch.as_tensor(test_frames(b3, t3, seed=3), device=dev)
     carry = nt.init_batch_carry(engine.model.meta, b3, dev)
@@ -1280,6 +1407,7 @@ def main() -> int:
         raise RuntimeError("K1 disagrees with the plain version")
 
     # ---- 4. K2 against its plain version --------------------------------------
+    at(4)
     b4 = K2_BATCH
     pre, _ = precompute_chunk(carry.feat.input_mem[:b4], carry.feat.hp_mem[:b4], frames[:b4])
     c4 = fk.carry_arrays(nt.init_batch_carry(engine.model.meta, b4, dev))
@@ -1301,6 +1429,7 @@ def main() -> int:
         raise RuntimeError("K2 disagrees with the plain version")
 
     # ---- 5. golden through the engine --------------------------------------------
+    at(5)
     clip = np.fromfile(DATA / "testing.raw", "<i2").astype(np.float32)
     ref = np.fromfile(DATA / "reference_output.raw", "<i2").astype(np.float64)
     t5 = len(clip) // FRAME
@@ -1319,6 +1448,7 @@ def main() -> int:
         raise RuntimeError("the engine did not launch both kernels")
 
     # ---- 6. real size ------------------------------------------------------------
+    at(6)
     b6, t6 = REAL_SHAPE
     big = torch.as_tensor(test_frames(b6, t6 * (TIMED_CHUNKS + 1), seed=6), device=dev)
     batch = nt.StreamBatch(b6, engine, device=dev)
@@ -1366,7 +1496,32 @@ def main() -> int:
     if not ok:
         raise RuntimeError("K1 disagrees with its plain version at the main path's shape")
 
+    # the eager two-phase chunk (the precompute's plain ops, K1, K2): what the
+    # host issues and how much of the chunk's wall time the device is busy
+    for b in (b6, SMALL_CHUNK_BATCH):
+        carry_b = nt.init_batch_carry(engine.model.meta, b, dev)
+        frames_b = big[:b, :t6].contiguous()
+        run = lambda: nt.denoise.process_chunk(engine, carry_b, frames_b)
+        run()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(WALL_CHUNKS):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall_ms = sum(walls) / len(walls)
+        host, n_host, n_dev, busy = profile_run(torch, run, 1)
+        print(f"[6] one eager two-phase chunk at B={b} T={t6}: {wall_ms:.3f} ms wall (host clock to the sync, "
+              f"mean of {WALL_CHUNKS}; least {min(walls):.3f}); by torch.profiler: host launches {n_host:.0f} "
+              f"{host}, device operations {n_dev:.0f}, device busy {busy:.3f} ms, {busy / wall_ms:.1%} of the "
+              f"mean wall, {busy / min(walls):.1%} of the least ({card})")
+        if not n_dev:
+            raise RuntimeError("torch.profiler saw no device operation in the two-phase chunk")
+        del carry_b, frames_b
+
     # ---- 7. K3, K5 and K6 against their plain versions ---------------------------
+    at(7)
     # K3 windows: each stream's decimated input history at frame 50 of the
     # phase-6 input (full[:, 480 (t + 1):][:1728]), as the per-frame path
     # hands them over
@@ -1424,12 +1579,15 @@ def main() -> int:
                 raise RuntimeError(f"{name} disagrees with its plain version at B={b}")
 
     # ---- 8. the per-frame path ---------------------------------------------------
+    at(8)
     counts8 = per_frame_phase(torch, dev, card, clip[: t5 * FRAME].reshape(t5, FRAME), ref, reset_counts, counts)
 
     # ---- 9. the scan engine at full width -------------------------------------------
+    at(9)
     counts9 = scan_phase(torch, dev, card, engine, big, chunk_ms, reset_counts, counts)
 
     # ---- 10. a non-standard topology on the card ---------------------------------------
+    at(10)
     b10, t10 = CUSTOM_SHAPE
     custom = custom_model(nt, seed=10)
     frames10 = test_frames(b10, t10, seed=10)
@@ -1444,6 +1602,7 @@ def main() -> int:
         raise RuntimeError("the non-standard model was not served right by the scan engine")
 
     # ---- 11. K4 against its plain version -------------------------------------------
+    at(11)
     wins11 = pk.window_stack(ds6, w06, t6).reshape(b6 * t6, -1)
     y11 = whiten(wins11)
     corr11 = sliding_dot(y11[:, 384:], y11, 385)
@@ -1500,6 +1659,7 @@ def main() -> int:
     del ctab, yytab, xx11, pidx_search, pidx_draw
 
     # ---- 12. the tools path: attribution at full size ------------------------------------
+    at(12)
     reset_counts()
     res12 = attrib.main(["--device", DEVICE])
     torch.cuda.synchronize()
@@ -1528,6 +1688,7 @@ def main() -> int:
         raise RuntimeError("the tools path did not launch K3 and K4")
 
     # ---- 13. the pitch trace against the native engine -------------------------------------
+    at(13)
     pt, gt = pitch_trace(clip, device=dev)
     pn, gn = pitch_trace_native(clip)
     neq = pt != pn
@@ -1539,6 +1700,7 @@ def main() -> int:
         raise RuntimeError("the pitch trace misses the lag-exact bar against the native engine")
 
     # ---- 14. the CLI, the signal adapter and the sine benchmark ------------------------------
+    at(14)
     with tempfile.TemporaryDirectory() as tmp:
         for extra in ([], ["--engine", "native"]):
             out_path = pathlib.Path(tmp) / "out.raw"
@@ -1571,6 +1733,7 @@ def main() -> int:
             raise RuntimeError("sine_bench gave no rate")
 
     # ---- 15. K2's FFT alone, at the phase-6 shapes -------------------------------------------
+    at(15)
     packed6, _ = k2_kern()
     per6 = packed6[..., fk.OFF_PERIOD].to(torch.int64).T  # (B, T)
     full6 = torch.cat([carry6.feat.input_mem, filt6.reshape(b6, -1)], 1).unfold(1, 960, 1)
@@ -1651,6 +1814,7 @@ def main() -> int:
           f"{cuda_ms(torch, lambda: mem7.gather(1, gidx), 20):.4f} ms a call ({card})")
 
     # ---- 16. K1 by stage through its skip knob ---------------------------------------------
+    at(16)
     prod16 = k1_kern()
     if not all(torch.equal(a, b) for a, b in zip(prod16, pk.pitch_analysis_cuda(ds6, w06, t6, skip=()))):
         raise RuntimeError("K1 with skip=() is not bit-equal to the production launch")
@@ -1674,10 +1838,12 @@ def main() -> int:
           + ", ".join(f"{k} {c:+.3f} ms" for k, c in cost16.items()) + f" ({card})")
 
     # ---- 17. the training path ----------------------------------------------------------------
-    training_phase(torch, dev, card, reset_counts, counts)
+    at(17)
+    trained = training_phase(torch, dev, card, reset_counts, counts)
 
     # ---- 18. the multi-device split and data-parallel fit --------------------------------------
-    parallel_phase(torch, dev, card, engine, big, reset_counts, counts)
+    at(18)
+    parallel_phase(torch, dev, card, engine, big, trained, reset_counts, counts)
 
     band_nnz = int((BAND_CORR_MATRIX != 0).sum())
     bounds = kernel_bounds(b6, t6, b6 * t6, 2 * b6 * t6, b6 * t6, band_nnz)
@@ -1718,6 +1884,7 @@ def main() -> int:
     if beat:
         raise RuntimeError(f"{beat} timed below their bound: the timing's data did not come from "
                            "where the bound's count assumes")
+    at("end")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

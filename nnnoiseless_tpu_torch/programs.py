@@ -15,8 +15,10 @@ runs it:
 * on a CUDA device, the first call runs the step once on a side stream
   (the warm-up: it builds the kernels and uploads the tables that the
   capture must find in place), restores the state the warm-up changed,
-  captures the step as a CUDA graph in a memory pool of its own, and
-  replays it; every later call replays it.  The graph runs the eager
+  captures the step as a CUDA graph in a memory pool of its own (Python's
+  cyclic collector run first and held off during the capture, so that no
+  other program's graph is destroyed inside it), and replays it; every
+  later call replays it.  The graph runs the eager
   step's kernels in the eager step's order, so its outputs are the eager
   step's, bit for bit.  A capture or a replay that fails raises: nothing
   falls back to the eager step on the card;
@@ -30,8 +32,8 @@ pinned buffer after it, one synchronisation.  :class:`ScanProgram` is
 the chunk's precompute at a time through a static :class:`FramePre` slot.
 :class:`FeatureProgram` is ``pipeline.analyze_frame_hoisted`` (K6) fed the
 same way: the generator's frame loop.  :class:`TrainProgram` is one train
-step (forward over the sequence, backward, Adam, the clip) on a static
-index vector.
+step (forward over the sequence, backward, Adam, the clip; over a mesh the
+NCCL all-reduce of the gradients too) on a static index vector.
 
 Launch counts: a kernel wrapper counts a launch when its Python runs.
 While a step is captured nothing launches, so the capture takes back the
@@ -46,6 +48,7 @@ at a time (a ``DenoiseState`` owns its :class:`FrameProgram`, an
 
 from __future__ import annotations
 
+import gc
 import time
 
 import numpy as np
@@ -114,8 +117,14 @@ class StepProgram:
     """``step()``, a function of static tensors, as a program on ``device``:
     captured once and replayed on a CUDA device, run eagerly on the CPU.
 
-    ``state``: the static tensors whose values the step carries from call
-    to call; the warm-up before the capture leaves them as it found them.
+    ``state`` (kept as :attr:`state`): the static tensors whose values the
+    step carries from call to call; the warm-up before the capture leaves
+    them as it found them.  A step may hold a collective (the data-parallel
+    train step's all-reduce): the warm-up runs it first, which creates
+    NCCL's communicator if the group had none, and the capture records it
+    in the graph like a kernel, in ``torch.cuda.graph``'s default capture
+    mode ("global": the process group's watchdog thread, which queries
+    the events of collectives in flight, does not invalidate it).
     After the capture: :attr:`captured` (kernel name -> launches recorded
     in the graph), :attr:`pool_bytes` (device memory the capture reserved
     for the graph's pool), :attr:`warmup_s` and :attr:`capture_s` (wall
@@ -125,7 +134,7 @@ class StepProgram:
 
     def __init__(self, step, state, device):
         self._step = step
-        self._state = tuple(state)
+        self.state = tuple(state)
         self.device = torch.device(device)
         self.graph = None
         self.captured: dict = {}
@@ -147,7 +156,7 @@ class StepProgram:
 
     def _capture(self) -> None:
         dev = self.device
-        saved = [t.detach().clone() for t in self._state]
+        saved = [t.detach().clone() for t in self.state]
         t0 = time.perf_counter()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -158,9 +167,14 @@ class StepProgram:
         self.warmup_s = time.perf_counter() - t0
         self.warmups += 1
         with torch.no_grad():  # the state may hold parameters
-            for t, s in zip(self._state, saved):
+            for t, s in zip(self.state, saved):
                 t.copy_(s)
         del saved
+        # A program whose step closes over it is freed by the cyclic
+        # collector, which destroys its graph; destroying a graph while
+        # another is captured invalidates that capture.  So collect first,
+        # and let no collection run inside the capture.
+        gc.collect()
         # torch.cuda.graph empties the allocator's cache as it enters; doing
         # it first makes the growth of the reserved memory the pool's size
         torch.cuda.synchronize(dev)
@@ -169,10 +183,14 @@ class StepProgram:
         before = launch_counts()
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph):
                 self._step()
         finally:
+            if collecting:
+                gc.enable()
             after = launch_counts()
             _add_counts({k: before[k] - after[k] for k in before})
         self.capture_s = time.perf_counter() - t0
@@ -314,11 +332,17 @@ class FeatureProgram:
 
 class TrainProgram:
     """A train step on a static (B,) index vector: ``fit``'s program, as the
-    jitted ``train_step_indexed`` is the JAX package's.  ``step(idx)`` runs
-    one step of ``model`` under ``opt`` on the rows ``idx`` and returns the
-    loss (``training.train.train_step_indexed`` on the device's dataset);
-    one replay is its forward over the whole sequence, the backward, the
-    optimizer's update and whatever else it launches, in the eager order.
+    jitted ``train_step_indexed`` is the JAX package's, on one device or
+    over a ``dp`` mesh.  ``step(idx)`` runs one step of ``model`` under
+    ``opt`` on the rows ``idx`` and returns the loss
+    (``training.train.train_step_indexed`` on the device's dataset, or
+    ``train_step_dp``, which takes this rank's slice of the global batch's
+    ``idx`` and all-reduces the gradients and the loss); one replay is its
+    forward over the whole sequence, the backward, the all-reduce if any,
+    the optimizer's update and whatever else it launches, in the eager
+    order.  Over a mesh every rank calls its program at the same steps, so
+    the ranks warm up, capture and replay the same collectives in the same
+    order.
 
     The program's state is the model's parameters, every tensor of the
     optimizer's state and each group's learning rate, all of which must

@@ -5,11 +5,12 @@ The counterpart of ``nnnoiseless_tpu/training/train.py``, the equivalent of
 train/rnn_train.py (same topology, losses, loss weights, sequence length
 2000, batch 32, sample reweighting by mean gain tertile).  The dataset goes
 to the device once; each step gathers its batch there from a (B,) index
-vector (:func:`train_step_indexed`).  Without a mesh the step runs as a
-``programs.TrainProgram``: on a card one captured CUDA graph a step (Adam
-``capturable``).  Over a mesh every rank holds the whole dataset and takes
-its slice of each step's index vector, and one all-reduce a step makes the
-step that of the global batch (:func:`train_step_dp`, eager).
+vector (:func:`train_step_indexed`).  Over a mesh every rank holds the
+whole dataset and takes its slice of each step's index vector, and one
+all-reduce a step makes the step that of the global batch
+(:func:`train_step_dp`).  Either step runs as a ``programs.TrainProgram``:
+on a card one captured CUDA graph a step (Adam ``capturable``; over a mesh
+the NCCL all-reduce is inside the graph), on the CPU the eager step.
 
 Usage::
 
@@ -303,11 +304,12 @@ def fit(
     A run resumed from a checkpoint takes its epochs again from the saved
     step.
 
-    Without a mesh each step is one call of a :class:`programs.TrainProgram`
-    of :func:`train_step_indexed`, built once a call: on a card a CUDA graph
-    captured at the first step and replayed (a capture or replay that fails
-    raises), on the CPU the eager step.  Each epoch's permutation is
-    uploaded once; a step copies its slice into the program's index vector.
+    Each step is one call of a :class:`programs.TrainProgram`, built once a
+    call, of :func:`train_step_indexed` or, over a mesh,
+    :func:`train_step_dp`: on a card a CUDA graph captured at the first
+    step and replayed (a capture or replay that fails raises), on the CPU
+    the eager step.  Each epoch's permutation is uploaded once; a step
+    copies its slice into the program's index vector.
 
     ``mesh``: a 1-D ``torch.distributed`` DeviceMesh with the dim name
     "dp" for data parallelism, one process a rank (gloo on the CPU, NCCL
@@ -317,8 +319,11 @@ def fit(
     takes the r-th contiguous slice of each step's ``batch_size`` indices
     (divisible by the mesh size), and :func:`train_step_dp` makes the step
     the global batch's.  ``history`` and the log lines hold the global
-    loss, and only rank 0 logs and writes checkpoints; every rank resumes
-    from them.
+    loss, and only rank 0 logs and writes checkpoints, between steps;
+    every rank resumes from them.  On cards each rank captures its step,
+    its all-reduce inside, at its first step, so every rank must take that
+    step: the warm-up step before the capture is the group's first
+    collective if nothing ran one before, and creates NCCL's communicator.
     """
     device = check_device(device)
     rank = 0
@@ -351,18 +356,17 @@ def fit(
     data = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
             for k, v in (("features", features), ("gains", gains), ("vad", vad))}
     if mesh is None:
-        program = TrainProgram(lambda idx: train_step_indexed(model, opt, data, idx, seq_w), model, opt, batch_size)
+        step_fn = lambda idx: train_step_indexed(model, opt, data, idx, seq_w)
+    else:
+        step_fn = lambda idx: train_step_dp(model, opt, data, idx, seq_w, mesh)
+    program = TrainProgram(step_fn, model, opt, batch_size)
 
     pending: list = []
     done = 0
     for epoch in range(epochs):
         perm = torch.as_tensor(rng.permutation(n), device=device)
         for i in range(0, n - batch_size + 1, batch_size):
-            idx = perm[i : i + batch_size]
-            if mesh is None:
-                loss = program(idx)
-            else:
-                loss = train_step_dp(model, opt, data, idx, seq_w, mesh)
+            loss = program(perm[i : i + batch_size])
             if done % log_every == 0 and rank == 0:
                 print(f"epoch {epoch} step {done} loss {float(loss):.5f}")
             if history is not None:

@@ -21,11 +21,17 @@ data whose errors stay clear of it (_params(34), _dataset(35): 6.0e-6).
 
 The ``cuda`` cases need a card and skip here: there the programs are CUDA
 graphs, held bit-equal to the eager steps on the card, and a capture that
-fails must raise.  The file imports JAX only inside the tests that compare
-with it, so the ``cuda`` cases run where JAX is not installed::
+fails must raise; the data-parallel step's cases run in this process over
+a 1-rank NCCL group (a ``FileStore`` in the test's temporary directory, no
+network), the all-reduce inside the graph.  The file imports JAX only
+inside the tests that compare with it, so the ``cuda`` cases run where JAX
+is not installed::
 
     NNT_TEST_PLATFORM=cuda python -m pytest tests/test_torch_train_program.py -q -m cuda
 """
+
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -356,3 +362,93 @@ def test_failed_train_capture_raises_on_the_card(card):
             prog(torch.as_tensor(ds["idx"][0], device=card))
         assert prog.program.graph is None and prog.program.replays == 0
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_no_graph_is_destroyed_inside_a_capture(card):
+    """A program whose step closes over it is freed by the cyclic
+    collector, which destroys its graph, and a graph destroyed while
+    another is captured invalidates that capture: a program dropped after
+    its capture is freed before the next program captures, and no
+    collection starts while a capture runs."""
+    p, ds = _params(40), _dataset(41)
+    idx = torch.as_tensor(ds["idx"][0], device=card)
+    old = _program(*_trainer(p, ds, card))
+    old(idx)
+    events = []
+    weakref.finalize(old, lambda: events.append(("freed", torch.cuda.is_current_stream_capturing())))
+    del old
+
+    def on_collection(phase, info):
+        if phase == "start":
+            events.append(("collection", torch.cuda.is_current_stream_capturing()))
+
+    gc.callbacks.append(on_collection)
+    try:
+        new = _program(*_trainer(p, ds, card))
+        new(idx)
+    finally:
+        gc.callbacks.remove(on_collection)
+    assert ("freed", False) in events and ("freed", True) not in events
+    assert ("collection", True) not in events
+    assert new.program.graph is not None and new.program.replays == 1
+
+
+@pytest.fixture
+def nccl_mesh(card, tmp_path):
+    """A 1-D "dp" DeviceMesh over a 1-rank NCCL group, destroyed after the
+    test whatever its outcome."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1,), mesh_dim_names=("dp",))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", [None, "cosine"])
+def test_dp_train_graph_equals_eager_on_the_card(nccl_mesh, card, schedule):
+    """The data-parallel step (train_step_dp, its all-reduce inside the
+    graph) replayed 3 times from its graph, bit-equal to 3 eager steps from
+    the same parameters and Adam state, constant and cosine over 5 steps.
+    The graph's warm-up step is the group's first collective."""
+    p, ds = _params(36), _dataset(37)
+    cosine = None if schedule is None else 5
+    runs = []
+    for graphed in (True, False):
+        model, opt, data, seq_w = _trainer(p, ds, card, cosine)
+        step = lambda idx: TT.train_step_dp(model, opt, data, idx, seq_w, nccl_mesh)
+        prog = TrainProgram(step, model, opt, B) if graphed else None
+        idxs = [torch.as_tensor(ds["idx"][k], device=card) for k in range(STEPS)]
+        losses = torch.stack([(prog(idx) if graphed else step(idx)).clone() for idx in idxs])
+        runs.append((losses.cpu(), [q.detach().cpu() for q in model.parameters()], opt, prog))
+    (l_g, p_g, o_g, prog), (l_e, p_e, o_e, _) = runs
+    assert o_g.param_groups[0]["capturable"] and o_e.param_groups[0]["capturable"]
+    assert torch.equal(l_g, l_e) and len(set(l_g.tolist())) == STEPS
+    assert all(torch.equal(a, b) for a, b in zip(p_g, p_e))
+    assert prog.program.warmups == 1 and prog.program.replays == STEPS
+    assert TT.updates_taken(o_g) == TT.updates_taken(o_e) == STEPS
+
+
+@pytest.mark.cuda
+def test_failed_dp_capture_raises_on_the_card(nccl_mesh, card):
+    """A data-parallel step that reads the device from the host after its
+    all-reduce cannot be captured: the call raises, and so does the next;
+    nothing runs it eagerly in the graph's place (the parameters stay as
+    they were), and the group still serves an eager step afterwards."""
+    p, ds = _params(38), _dataset(39)
+    model, opt, data, seq_w = _trainer(p, ds, card)
+    before = [q.detach().clone() for q in model.parameters()]
+    step = lambda idx: TT.train_step_dp(model, opt, data, idx, seq_w, nccl_mesh) * float(idx.sum().item() > -1)
+    prog = TrainProgram(step, model, opt, B)
+    idx = torch.as_tensor(ds["idx"][0], device=card)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            prog(idx)
+        assert prog.program.graph is None and prog.program.replays == 0
+        assert all(torch.equal(a, b) for a, b in zip(model.parameters(), before))
+    torch.cuda.synchronize()
+    assert torch.isfinite(TT.train_step_dp(model, opt, data, idx, seq_w, nccl_mesh))

@@ -29,7 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import flags
+from . import flags, tracing
 from .chunk import precompute_chunk
 from .constants import FRAME_SIZE
 from .model import ModelMeta, RnnModel
@@ -114,21 +114,29 @@ def scan_chunk(engine: Engine, carry: DenoiseCarry, frames: torch.Tensor,
     products (kernel K1 on CUDA), then the T frames of
     :func:`pipeline.frame_step_hoisted` (kernels K5 and K6 on CUDA), each
     a replay of the engine's :class:`programs.ScanProgram` for B streams.
-    The returned carry's tensors are its own."""
-    pre, hp_out = precompute_chunk(carry.feat.input_mem, carry.feat.hp_mem, frames, lag0=True)
-    carry, *rest = engine.scan_program(frames.shape[0])(carry, pre, return_trace)
+    The returned carry's tensors are its own.  The two phases are the
+    spans ``chunk.precompute`` and ``chunk.frame_loop``."""
+    with tracing.span("chunk.precompute"):
+        pre, hp_out = precompute_chunk(carry.feat.input_mem, carry.feat.hp_mem, frames, lag0=True)
+    with tracing.span("chunk.frame_loop"):
+        carry, *rest = engine.scan_program(frames.shape[0])(carry, pre, return_trace)
     return (_with_hp_mem(carry, hp_out), *rest)
 
 
 def process_chunk(engine: Engine, carry: DenoiseCarry, frames: torch.Tensor):
     """One chunk (B, T, 480) on the engine's device -> (carry', out
     (B, T, 480), vad (B, T)): the scan engine, or the two-phase engine,
-    whose phase 2 takes the biquad carry patched from phase 1."""
-    if not engine.two_phase:
-        return scan_chunk(engine, carry, frames)
-    pre, hp_out = precompute_chunk(carry.feat.input_mem, carry.feat.hp_mem, frames)
-    carry2, out, vad = run_frame_loop(engine.rnn, carry, pre, engine.weights)
-    return _with_hp_mem(carry2, hp_out), out, vad
+    whose phase 2 takes the biquad carry patched from phase 1.  The call
+    is the span ``chunk``; its phases ``chunk.precompute`` and
+    ``chunk.frame_loop``."""
+    with tracing.span("chunk"):
+        if not engine.two_phase:
+            return scan_chunk(engine, carry, frames)
+        with tracing.span("chunk.precompute"):
+            pre, hp_out = precompute_chunk(carry.feat.input_mem, carry.feat.hp_mem, frames)
+        with tracing.span("chunk.frame_loop"):
+            carry2, out, vad = run_frame_loop(engine.rnn, carry, pre, engine.weights)
+        return _with_hp_mem(carry2, hp_out), out, vad
 
 
 def process_frames(model, carry: DenoiseCarry, frames, device=None):

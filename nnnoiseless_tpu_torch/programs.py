@@ -48,14 +48,17 @@ at a time (a ``DenoiseState`` owns its :class:`FrameProgram`, an
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import gc
 import time
 
 import numpy as np
 import torch
 
+from . import tracing
 from .constants import FRAME_SIZE, FREQ_SIZE, NB_BANDS, NB_FEATURES
-from .ops import fft, frame_kernel, pitch_kernel, rnn_kernel, window
+from .ops.counters import COUNTERS, add_counts, launch_counts  # noqa: F401  (the tools read both here)
 from .ops.pitch import N_CAND
 from .pipeline import (
     DenoiseCarry,
@@ -67,29 +70,6 @@ from .pipeline import (
     init_carry,
     init_feature_state,
 )
-
-# The kernel wrappers' launch counters, by the names the tools print.
-COUNTERS = {
-    "K1": (pitch_kernel, "launches"),
-    "K2": (frame_kernel, "launches"),
-    "K3": (pitch_kernel, "stacked_launches"),
-    "K4": (frame_kernel, "cand_launches"),
-    "K5": (rnn_kernel, "launches"),
-    "K6": (window, "launches"),
-    "probe": (fft, "launches"),
-}
-
-
-def launch_counts() -> dict:
-    """Every kernel wrapper's launch count, by kernel name."""
-    return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
-
-
-def _add_counts(counts: dict) -> None:
-    for name, n in counts.items():
-        mod, attr = COUNTERS[name]
-        setattr(mod, attr, getattr(mod, attr) + n)
-
 
 def leaves(tree) -> list:
     """The tensors of a carry (nested NamedTuples), in field order."""
@@ -113,6 +93,35 @@ def snapshot(tree):
     return tree.clone()
 
 
+@functools.cache
+def _driver() -> ctypes.CDLL:
+    """The CUDA driver torch has loaded, with the two calls that count the
+    nodes of a graph in capture declared (torch has no call for it)."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    size_p = ctypes.POINTER(ctypes.c_size_t)
+    lib.cuStreamGetCaptureInfo_v2.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_uint64),
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, size_p]
+    lib.cuStreamGetCaptureInfo_v2.restype = ctypes.c_int
+    lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, size_p]
+    lib.cuGraphGetNodes.restype = ctypes.c_int
+    return lib
+
+
+def _capture_nodes(stream: torch.cuda.Stream) -> int:
+    """The nodes recorded so far in the graph that ``stream`` is capturing:
+    kernels, copies, memsets and whatever other node the capture made."""
+    lib = _driver()
+    status, graph, n = ctypes.c_int(), ctypes.c_void_p(), ctypes.c_size_t()
+    err = lib.cuStreamGetCaptureInfo_v2(stream.cuda_stream, ctypes.byref(status), None,
+                                        ctypes.byref(graph), None, None)
+    if err == 0 and status.value == 1:  # CU_STREAM_CAPTURE_STATUS_ACTIVE
+        err = lib.cuGraphGetNodes(graph, None, ctypes.byref(n))
+    if err != 0 or status.value != 1:
+        raise RuntimeError(f"cannot count the nodes of the capture (CUresult {err}, capture status {status.value})")
+    return n.value
+
+
 class StepProgram:
     """``step()``, a function of static tensors, as a program on ``device``:
     captured once and replayed on a CUDA device, run eagerly on the CPU.
@@ -129,7 +138,10 @@ class StepProgram:
     in the graph), :attr:`pool_bytes` (device memory the capture reserved
     for the graph's pool), :attr:`warmup_s` and :attr:`capture_s` (wall
     seconds of the warm-up step and of the capture with the graph's
-    instantiation), :attr:`replays`, :attr:`warmups`.
+    instantiation), :attr:`replays`, :attr:`warmups`, and
+    :attr:`graph_nodes`: the nodes of the captured graph, the device
+    operations of one replay as the program counts them (0 on the CPU).
+    Under :mod:`tracing` each replay is the span ``program.replay``.
     """
 
     def __init__(self, step, state, device):
@@ -140,6 +152,7 @@ class StepProgram:
         self.captured: dict = {}
         self.pool_bytes = 0
         self.warmup_s = self.capture_s = 0.0
+        self.graph_nodes = 0
         self.replays = 0
         self.warmups = 0
 
@@ -150,9 +163,10 @@ class StepProgram:
         with torch.cuda.device(self.device):
             if self.graph is None:
                 self._capture()
-            self.graph.replay()
+            with tracing.span("program.replay"):
+                self.graph.replay()
+                add_counts(self.captured)
         self.replays += 1
-        _add_counts(self.captured)
 
     def _capture(self) -> None:
         dev = self.device
@@ -188,14 +202,16 @@ class StepProgram:
         try:
             with torch.cuda.graph(graph):
                 self._step()
+                nodes = _capture_nodes(torch.cuda.current_stream(dev))
         finally:
             if collecting:
                 gc.enable()
             after = launch_counts()
-            _add_counts({k: before[k] - after[k] for k in before})
+            add_counts({k: before[k] - after[k] for k in before})
         self.capture_s = time.perf_counter() - t0
         self.captured = {k: after[k] - before[k] for k in before if after[k] != before[k]}
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.graph_nodes = nodes
         self.graph = graph
 
 
@@ -224,14 +240,19 @@ class FrameProgram:
         self.program = StepProgram(step, leaves(self.carry), dev)
 
     def __call__(self, frame: np.ndarray) -> tuple[np.ndarray, float]:
-        """One (480,) f32 frame -> (output (480,), vad)."""
-        self._frame_np[0] = frame
-        self._frame.copy_(self._frame_host, non_blocking=True)
-        self.program()
-        self._result_host.copy_(self._result, non_blocking=True)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
-        return self._result_np[:FRAME_SIZE].copy(), float(self._result_np[FRAME_SIZE])
+        """One (480,) f32 frame -> (output (480,), vad); the spans
+        ``frame``, ``frame.launch`` (timed on the device too) and
+        ``frame.wait``."""
+        with tracing.span("frame"):
+            with tracing.span("frame.launch", self.device):
+                self._frame_np[0] = frame
+                self._frame.copy_(self._frame_host, non_blocking=True)
+                self.program()
+                self._result_host.copy_(self._result, non_blocking=True)
+            with tracing.span("frame.wait"):
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+            return self._result_np[:FRAME_SIZE].copy(), float(self._result_np[FRAME_SIZE])
 
     def reset(self) -> None:
         """Zero the carry in place."""

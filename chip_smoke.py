@@ -1096,7 +1096,7 @@ def parallel_phase(torch, dev, card: str, engine, big, trained: dict, reset_coun
         shard = _map_leaves(lambda x: x[:s].contiguous(), carry0)
         one = chunk(0)[:s].contiguous()
         args1 = (ds[:s].contiguous(), w0[:, :s].contiguous(), t)
-        args2 = (engine.rnn, engine.weights, tuple(a[:s].contiguous() for a in arrays),
+        args2 = (engine.rnn, engine.rnn_weights, tuple(a[:s].contiguous() for a in arrays),
                  pre.filtered[:, :s].contiguous(), pre.cand[:, :s].contiguous())
         shard_ms = cuda_ms(torch, lambda: nt.denoise.process_chunk(engine, shard, one), TIMED_CHUNKS)
         k1 = cuda_ms(torch, lambda: pk.pitch_analysis_cuda(*args1), TIMED_CHUNKS)
@@ -1309,7 +1309,7 @@ def scan_phase(torch, dev, card: str, engine, big, chunk_ms: float, reset_counts
     packed_pl, _ = fk.frame_loop_plain(engine.rnn, fk.carry_arrays(batch9.carry), pre9.filtered, pre9.cand)
     out_pl = packed_pl[..., :FRAME].transpose(0, 1)
     per_pl = packed_pl[..., fk.OFF_PERIOD].transpose(0, 1).to(torch.int32)
-    _, out_k2, _, (per_k2, _) = fk.run_frame_loop(engine.rnn, batch9.carry, pre9, engine.weights,
+    _, out_k2, _, (per_k2, _) = fk.run_frame_loop(engine.rnn, batch9.carry, pre9, engine.rnn_weights,
                                                   return_trace=True)
     ok, msg = waveform_bars(torch, out9, out_pl, per9, per_pl)
     print(f"[9] scan engine against the two-phase engine with K2's plain version: {msg}")
@@ -1412,7 +1412,7 @@ def main() -> int:
     pre, _ = precompute_chunk(carry.feat.input_mem[:b4], carry.feat.hp_mem[:b4], frames[:b4])
     c4 = fk.carry_arrays(nt.init_batch_carry(engine.model.meta, b4, dev))
     packed_p, carry_p = fk.frame_loop_plain(engine.rnn, c4, pre.filtered, pre.cand)
-    packed_k, carry_k = fk.frame_loop_cuda(engine.rnn, engine.weights, c4, pre.filtered, pre.cand)
+    packed_k, carry_k = fk.frame_loop_cuda(engine.rnn, engine.rnn_weights, c4, pre.filtered, pre.cand)
     torch.cuda.synchronize()
     want = packed_p[..., :FRAME].double()
     d = (packed_k[..., :FRAME].double() - want).abs()
@@ -1480,7 +1480,7 @@ def main() -> int:
     k1_plain = lambda: pk.pitch_analysis_plain(ds6, w06, t6)
     k1_kern = lambda: pk.pitch_analysis_cuda(ds6, w06, t6)
     k2_plain = lambda: fk.frame_loop_plain(engine.rnn, ca6, pre6.filtered, pre6.cand)
-    k2_kern = lambda: fk.frame_loop_cuda(engine.rnn, engine.weights, ca6, pre6.filtered, pre6.cand)
+    k2_kern = lambda: fk.frame_loop_cuda(engine.rnn, engine.rnn_weights, ca6, pre6.filtered, pre6.cand)
     times = {}
     for name, plain, kern in (("k1", k1_plain, k1_kern), ("k2", k2_plain, k2_kern)):
         p1 = cuda_ms(torch, plain)

@@ -38,12 +38,12 @@ _SIGNATURES = {
     # the same, then the skipped-stage mask, stream
     "nnt_pitch_analysis_skip": (P, I, P, P, P, I, I, I, P),
     # tables: FFT, band corr, band ranges, interp weights, interp bands,
-    # dct, tansig; weights: int8 buffer, offsets (int32), acts (int32);
+    # dct, tansig; tiled int8 weights, acts (int32), weight bytes;
     # carries in: mem, synth, cmem, hv, hn, hd, lastg, period, pgain;
     # streams: filt, cand; out: packed;
     # carries out: mem, synth, cmem, hv, hn, hd, lastg, period, pgain;
     # batch, t_count, skipped-stage mask, stream
-    "nnt_frame_loop": (P,) * 7 + (P,) * 3 + (P,) * 9 + (P,) * 2 + (P,) + (P,) * 9
+    "nnt_frame_loop": (P,) * 7 + (P, P, I) + (P,) * 9 + (P,) * 2 + (P,) + (P,) * 9
     + (I, I, I, P),
     # windows, cand, pidx, rows, stream
     "nnt_pitch_analysis_stacked": (P, P, P, I, P),

@@ -7,8 +7,8 @@
 // history shift, lag-0 windowed DFT + band energies + floored log spectrum
 // + DCT cepstrum + silence gate, octave removal from the candidate lanes,
 // the window at the pitch lag and its DFT, the 42 features, silence
-// masking, the RNN with the 201-entry tansig table (the stages of
-// rnn_cell.cuh, shared with kernel K5), the pitch comb filter
+// masking, the RNN with the 201-entry tansig table (the register-tiled
+// stages of rnn_tile.cuh, shared with kernel K5), the pitch comb filter
 // and renormalization, the gain hangover and interpolation, the inverse
 // DFT and overlap-add.
 //
@@ -41,16 +41,33 @@
 // kernel_bounds): 113 GFLOP, 1.7 ms at the FP32 peak of 67 TFLOP/s, so
 // operations set the bound.  Neither is what the kernel meets: every
 // frame is a chain of ~30 block barriers, between which the per-stream
-// sections (octave removal, the log-spectrum floor, the RNN's rows) run on
-// a few threads of the block, and the band sums' longest band (160 bins)
-// is a serial loop.  So the kernel is latency-bound: its time is T x the
-// per-frame critical path x the waves of blocks.  A block owns S = 8
-// streams (two blocks, 16 streams an SM): on an H100 (700 W) at B = 4096,
-// T = 100 the kernel took 27.9 ms at S = 8 and 28.4 at S = 4 (PERF.md), so
-// more, smaller tiles an SM do not hide the latency; the skip stubs put
-// ~15 ms of it in the RNN stage.  The int8-valued weights (87 KB) are read
-// as int8 through L1, exact, and the twiddles (12.8 KB) through L1 as
-// well.
+// sections (octave removal, the log-spectrum floor) run on a few threads
+// of the block, and the band sums' longest band (160 bins) is a serial
+// loop.  So the kernel is latency-bound: its time is T x the per-frame
+// critical path x the waves of blocks.  A block owns S = 8 streams (two
+// blocks, 16 streams an SM): on an H100 (700 W) at B = 4096, T = 100 the
+// kernel took 27.9 ms at S = 8 and 28.4 at S = 4 (PERF.md), so more,
+// smaller tiles an SM do not hide the latency.
+//
+// The RNN stage runs the register tiles of rnn_tile.cuh over the block's
+// rows (Cell: 4 outputs x 4 streams a thread, one lane a sum in input
+// order, so the sums are those of the scalar loops it replaced, bit for
+// bit).  A k step is one 32-bit read-only load of 4 int8 weights, one
+// float4 shared load of 4 streams' input, one LOP3, 4 PRMT and 4 FADD to
+// widen the weights exactly, and 16 FFMA; over the whole function that is
+// 0.16 LDG, 0.20 LDS, 0.13 PRMT and 0.007 I2F per FFMA, against the scalar
+// stages' 0.42 LDG (byte loads), 0.38 LDS and 0.22 I2F (kernel_ab.py).
+// The weights (pack_tiled, 87.8 KB) stay in global memory and come
+// through L1 and L2: the block's 98,992 B of shared memory (the spectra
+// 61.6 KB, the RNN's 786 rows of 8 floats, 25.2 KB, in the space the
+// per-stream RNN fields took, and the per-stream blocks 11.4 KB) leave no
+// room for them at two blocks an SM.  The stage took 15.0 ms of the
+// kernel's 27.5 with the scalar stages and 8.2 of 20.6 with the tiles
+// (tools/attrib.py's skip stubs, PERF.md); it is latency-bound too: the
+// denoise GRU's 144 items (4.5 warps) walk 114 + 96 steps each, at ~36
+// instructions a step.  Unrolling 16 steps, loading the weight words 4-16
+// steps ahead through a ring of registers, or tiles of 8 streams a thread
+// measured no faster.
 //
 // Stage attribution.  The kernel is a template on a mask of stages to stub
 // out (the TPU kernel's `skip` knob, frame_kernel.py:596-756 there), for
@@ -66,7 +83,7 @@
 #include <stdint.h>
 
 #include "fft960.cuh"
-#include "rnn_cell.cuh"
+#include "rnn_tile.cuh"
 #include "smem_once.cuh"
 
 namespace frame {
@@ -90,8 +107,8 @@ struct Args {
   const float* iw;  // per bin: the weights of bands ib and ib + 1
   const int* ib;
   const float *dct, *tansig;
-  const int8_t* w;
-  const int *woff, *acts;
+  const uint8_t* w;  // ops/rnn_kernel.py::pack_tiled, rnn_tile::layout
+  const int* acts;
   const float *mem, *synth, *cmem, *hv, *hn, *hd, *lastg;
   const int* per;
   const float* pg;
@@ -135,37 +152,59 @@ constexpr float DCT_SCALE = 0.30151134729385376f;  // f32(sqrt(2/22))
 // Per-stream block of shared memory (offsets in floats).
 enum : int {
   P_CM = 0,                  // (8, 22) cepstral history, newest row first
-  P_HV = P_CM + CEPS * NB,   // GRU states
-  P_HN = P_HV + DV,
-  P_HD = P_HN + DN,
-  P_LASTG = P_HD + DH,
+  P_LASTG = P_CM + CEPS * NB,
   P_EX = P_LASTG + NB,       // band energies of x
   P_EP = P_EX + NB,          // band energies of p
   P_EXP = P_EP + NB,         // band correlation of x and p, then normalized
-  P_CEPS = P_EXP + NB,
+  P_CEPS = P_EXP + NB,       // cepstrum, dead after the RNN stage's history shift:
+  P_NORM = P_CEPS,           // ... then the comb filter's renormalization
   P_LY = P_CEPS + NB,        // log spectrum, later the comb gains r
   P_GAINS = P_LY + NB,
-  P_NORM = P_GAINS + NB,
-  P_G2 = P_NORM + NB,
-  P_FEAT = P_G2 + NB,        // 42 features
-  P_D = P_FEAT + NF,         // input dense output
-  P_HV2 = P_D + DD,          // new GRU states before silence masking
-  P_HN2 = P_HV2 + DV,
-  P_HD2 = P_HN2 + DN,
-  P_GIN = P_HD2 + DH,        // GRU input vector (up to 114)
-  P_GS = P_GIN + NF + DV + DN,  // gate scratch (3 x 96), or 64 distances
-  P_MISC = P_GS + 3 * DH,    // [0] pitch gain [1] vad [2] silence flag
+  P_G2 = P_GAINS + NB,
+  P_MISC = P_G2 + NB,        // [0] pitch gain [1] vad [2] silence flag
   PS = P_MISC + 4,
+};
+
+// The RNN's vectors as rows of the block's S streams (rnn_tile.cuh), row
+// stride SP floats.
+enum : int {
+  R_F = 0,             // the 42 features
+  R_D = R_F + NF,      // input dense output
+  R_HV = R_D + DD,     // GRU states (vad, noise, denoise: consecutive)
+  R_HN = R_HV + DV,
+  R_HD = R_HN + DN,
+  R_HV2 = R_HD + DH,   // new GRU states before silence masking, in the same order
+  R_HN2 = R_HV2 + DV,
+  R_HD2 = R_HN2 + DN,
+  R_G = R_HD2 + DH,    // GRU scratch (3 x 96 rows); before the RNN, 64 distances a stream
+  R_T = R_G + 3 * DH,  // raw sums
+  ROWS = R_T + DH,
 };
 constexpr int TAB = 204;  // tansig table, 201 entries
 
 constexpr int S = frame::TILE;  // streams per block
 constexpr int THREADS = 32 * S;
+constexpr int SP = S;
+// The RNN stage's tile: C streams a thread (4 x C sums a k step), one lane
+// a sum in input order, the weights read from global memory, RNN_UNROLL k
+// steps unrolled.  On an H100 at B = 4096, T = 100 the kernel took 20.7 ms
+// at C = 4 with 8 steps, 21.8 with 4, 22.0 with 16; 23.5 and 24.3 at C = 8
+// with 8 and 4 (PERF.md).  The rows' stride is S, 12.6 KB less than K5's
+// S + 4: a tile pass reads a row by broadcast, and the elementwise passes'
+// consecutive threads take consecutive floats.
+constexpr int RNN_C = 4;
+constexpr int RNN_UNROLL = 8;
+using Cell = rnn_tile::Tile<S, RNN_C, THREADS, 2, SP, true, RNN_UNROLL>;
+static_assert(rnn_tile::lanes<Cell>(1) == 1, "K2 sums in input order");
+static_assert(NF == rnn_tile::layout::NF && DD == rnn_tile::layout::DD && DV == rnn_tile::layout::DV &&
+                  DN == rnn_tile::layout::DN && DH == rnn_tile::layout::DH && DG == rnn_tile::layout::DG,
+              "the standard widths");
 
 // Shared memory of a block: 2S spectra, the tansig table, the per-stream
-// blocks, then S periods, 16 weight offsets and 8 codes.
+// blocks, the RNN's rows, then S periods and 8 codes.
 constexpr size_t SMEM_BYTES =
-    (size_t)(2 * S * PACKED + TAB + S * PS) * sizeof(float) + (S + 16 + 8) * sizeof(int);
+    (size_t)(2 * S * PACKED + TAB + S * PS + ROWS * SP) * sizeof(float) + (S + 8) * sizeof(int);
+static_assert((2 * S * PACKED + TAB + S * PS) % 4 == 0, "the rows are read as float4s");
 
 // Element q of stream b's input history after frame t's shift.
 __device__ __forceinline__ float hist(const Args& a, int b, int t, int q) {
@@ -239,7 +278,7 @@ __device__ void remove_doubling(const float* cand, int last_period, float last_g
 template <int SKIP>
 __global__ void __launch_bounds__(THREADS, 2) frame_kernel(const Args a) {
   using namespace frame;
-  using Cell = rnn_cell::Layout<S, THREADS, PS, P_GS, P_GIN>;
+  namespace L = rnn_tile::layout;
   // forward FFT rows: the lag-0 windows unless SK_LAG0, the pitch-lag
   // windows unless SK_DFT
   constexpr bool LAG0_ROWS = !(SKIP & SK_LAG0);
@@ -249,9 +288,10 @@ __global__ void __launch_bounds__(THREADS, 2) frame_kernel(const Args a) {
   float* U = reinterpret_cast<float*>(smem4);  // (2S, 962) spectra
   float* tab = U + 2 * S * PACKED;
   float* ps = tab + TAB;
-  int* iper = reinterpret_cast<int*>(ps + S * PS);
-  int* woff = iper + S;
-  int* acts = woff + 16;
+  float* R = ps + S * PS;  // (ROWS, SP) RNN rows
+  int* iper = reinterpret_cast<int*>(R + ROWS * SP);
+  int* acts = iper + S;
+  auto row = [&](int r, int j, int s) -> float& { return R[(r + j) * SP + s]; };
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -260,18 +300,21 @@ __global__ void __launch_bounds__(THREADS, 2) frame_kernel(const Args a) {
 
   // ---- carries in ---------------------------------------------------------
   for (int i = tid; i < 201; i += THREADS) tab[i] = a.tansig[i];
-  if (tid < 15) woff[tid] = a.woff[tid];
   if (tid < 6) acts[tid] = a.acts[tid];
-  for (int i = tid; i < S * PS; i += THREADS) ps[i] = 0.f;
+  for (int i = tid; i < S * PS + ROWS * SP; i += THREADS) ps[i] = 0.f;  // R follows ps
   __syncthreads();
   auto load = [&](const float* src, int n, int off) {
     for (int idx = tid; idx < n_valid * n; idx += THREADS)
       ps[(idx / n) * PS + off + idx % n] = src[(size_t)b0 * n + idx];
   };
+  auto load_rows = [&](const float* src, int n, int r0) {
+    for (int idx = tid; idx < n_valid * n; idx += THREADS)
+      row(r0, idx % n, idx / n) = src[(size_t)b0 * n + idx];
+  };
   load(a.cmem, CEPS * NB, P_CM);
-  load(a.hv, DV, P_HV);
-  load(a.hn, DN, P_HN);
-  load(a.hd, DH, P_HD);
+  load_rows(a.hv, DV, R_HV);
+  load_rows(a.hn, DN, R_HN);
+  load_rows(a.hd, DH, R_HD);
   load(a.lastg, NB, P_LASTG);
   if (tid < S) {
     iper[tid] = tid < n_valid ? a.per[b0 + tid] : 0;
@@ -281,7 +324,7 @@ __global__ void __launch_bounds__(THREADS, 2) frame_kernel(const Args a) {
     a.synth_o[(size_t)b0 * FRAME + idx] = a.synth[(size_t)b0 * FRAME + idx];
   __syncthreads();
 
-  const int8_t* W = a.w;
+  const uint8_t* W = a.w;
   const float* X = U;          // lag-0 spectra, rows 0..S-1
   float* P = U + S * PACKED;   // pitch-lag spectra, rows S..2S-1
 
@@ -387,6 +430,7 @@ __global__ void __launch_bounds__(THREADS, 2) frame_kernel(const Args a) {
     __syncthreads();
 
     // ---- squared distances between the rows of the new cepstral history ----
+    float* dist = R + R_G * SP;  // (S, 8, 8)
     for (int idx = tid; !(SKIP & SK_FEAT) && idx < S * CEPS * CEPS; idx += THREADS) {
       const int s = idx / (CEPS * CEPS), i = (idx / CEPS) % CEPS, j = idx % CEPS;
       float* p = ps + s * PS;
@@ -397,17 +441,17 @@ __global__ void __launch_bounds__(THREADS, 2) frame_kernel(const Args a) {
         const float v = __fsub_rn(ri[k], rj[k]);
         d = fmaf(v, v, d);
       }
-      p[P_GS + i * CEPS + j] = d;
+      dist[idx] = d;
     }
     __syncthreads();
 
-    // ---- the 42 features (features.rs:139-216), zero on silence ------------
+    // ---- the 42 features (features.rs:139-216), zero on silence, to their rows
     for (int idx = tid; idx < S * NF; idx += THREADS) {
       const int s = idx / NF, l = idx % NF;
       float* p = ps + s * PS;
       const float* ceps = p + P_CEPS;
       if constexpr (SKIP & SK_FEAT) {
-        p[P_FEAT + l] = ceps[l < NB ? l : l - NB];
+        row(R_F, l, s) = ceps[l < NB ? l : l - NB];
         continue;
       }
       const float* c1 = p + P_CM;       // previous frame
@@ -436,12 +480,12 @@ __global__ void __launch_bounds__(THREADS, 2) frame_kernel(const Args a) {
         for (int i = 0; i < CEPS; ++i) {
           float m = INFINITY;
           for (int j = 0; j < CEPS; ++j)
-            if (j != i) m = fminf(m, p[P_GS + i * CEPS + j]);
+            if (j != i) m = fminf(m, dist[(s * CEPS + i) * CEPS + j]);
           sum += m;
         }
         v = __fsub_rn(sum / (float)CEPS, 2.1f);
       }
-      p[P_FEAT + l] = p[P_MISC + 2] != 0.f ? 0.f : v;
+      row(R_F, l, s) = p[P_MISC + 2] != 0.f ? 0.f : v;
     }
     __syncthreads();
 
@@ -453,37 +497,46 @@ __global__ void __launch_bounds__(THREADS, 2) frame_kernel(const Args a) {
     }
     if constexpr (SKIP & SK_RNN) {
       for (int idx = tid; idx < S * NB; idx += THREADS) {
-        float* p = ps + (idx / NB) * PS;
-        p[P_GAINS + idx % NB] = __fmul_rn(fabsf(p[P_FEAT + idx % NB]), 0.01f);
+        const int s = idx / NB, i = idx % NB;
+        ps[s * PS + P_GAINS + i] = __fmul_rn(fabsf(row(R_F, i, s)), 0.01f);
       }
-      if (tid < S) ps[tid * PS + P_MISC + 1] = ps[tid * PS + P_FEAT];
+      if (tid < S) ps[tid * PS + P_MISC + 1] = row(R_F, 0, tid);
       __syncthreads();
     } else {
-    rnn_cell::dense_layer<Cell>(ps, P_FEAT, NF, W + woff[0], W + woff[1], DD, P_D, acts[0], tab);
+    // the tiles of rnn_tile.cuh over the block's rows; a GRU's inputs are
+    // runs of rows summed in turn, in the input order of [d, hv', f] and
+    // [hv', hn', f]
+    using rnn_tile::Runs;
+    float* G = R + R_G * SP;
+    float* TMP = R + R_T * SP;
+    rnn_tile::dense<Cell, DD>(Runs<NF>{{R + R_F * SP}}, W + L::O_DENSE, TMP, acts[0], tab, n_valid,
+                              [&](int j, int s, float v) { row(R_D, j, s) = v; });
     __syncthreads();
-    rnn_cell::gru_gates<Cell>(ps, P_D, DD, P_HV, DV, W + woff[2], W + woff[3], W + woff[4], tab);
+    rnn_tile::gru_gates<Cell, DV>(Runs<DD>{{R + R_D * SP}}, R + R_HV * SP, W + L::O_VAD, G, tab, n_valid);
     __syncthreads();
-    rnn_cell::gru_out<Cell>(ps, P_HV, DV, W + woff[3], acts[1], P_HV2, tab);
+    rnn_tile::gru_out<Cell, DD, DV>(R + R_HV * SP, W + L::O_VAD, G, TMP, acts[1], tab, n_valid,
+                                    [&](int j, int s, float v) { row(R_HV2, j, s) = v; });
     __syncthreads();
-    rnn_cell::dense_layer<Cell>(ps, P_HV2, DV, W + woff[13], W + woff[14], 1, P_MISC + 1, acts[5], tab);
-    rnn_cell::gather_input<Cell>(ps, P_D, DD, P_HV2, DV, P_FEAT, NF);
+    rnn_tile::dense<Cell, 1>(Runs<DV>{{R + R_HV2 * SP}}, W + L::O_VADH, TMP, acts[5], tab, n_valid,
+                             [&](int, int s, float v) { ps[s * PS + P_MISC + 1] = v; });
+    rnn_tile::gru_gates<Cell, DN>(Runs<DD, DV, NF>{{R + R_D * SP, R + R_HV2 * SP, R + R_F * SP}},
+                                  R + R_HN * SP, W + L::O_NOISE, G, tab, n_valid);
     __syncthreads();
-    rnn_cell::gru_gates<Cell>(ps, P_GIN, DD + DV + NF, P_HN, DN, W + woff[5], W + woff[6], W + woff[7], tab);
+    rnn_tile::gru_out<Cell, L::NIN_NOISE, DN>(R + R_HN * SP, W + L::O_NOISE, G, TMP, acts[2], tab, n_valid,
+                                              [&](int j, int s, float v) { row(R_HN2, j, s) = v; });
     __syncthreads();
-    rnn_cell::gru_out<Cell>(ps, P_HN, DN, W + woff[6], acts[2], P_HN2, tab);
+    rnn_tile::gru_gates<Cell, DH>(Runs<DV, DN, NF>{{R + R_HV2 * SP, R + R_HN2 * SP, R + R_F * SP}},
+                                  R + R_HD * SP, W + L::O_DEN, G, tab, n_valid);
     __syncthreads();
-    rnn_cell::gather_input<Cell>(ps, P_HV2, DV, P_HN2, DN, P_FEAT, NF);
+    rnn_tile::gru_out<Cell, L::NIN_DEN, DH>(R + R_HD * SP, W + L::O_DEN, G, TMP, acts[3], tab, n_valid,
+                                            [&](int j, int s, float v) { row(R_HD2, j, s) = v; });
     __syncthreads();
-    rnn_cell::gru_gates<Cell>(ps, P_GIN, DV + DN + NF, P_HD, DH, W + woff[8], W + woff[9], W + woff[10], tab);
-    __syncthreads();
-    rnn_cell::gru_out<Cell>(ps, P_HD, DH, W + woff[9], acts[3], P_HD2, tab);
-    __syncthreads();
-    rnn_cell::dense_layer<Cell>(ps, P_HD2, DH, W + woff[11], W + woff[12], DG, P_GAINS, acts[4], tab);
+    rnn_tile::dense<Cell, DG>(Runs<DH>{{R + R_HD2 * SP}}, W + L::O_GAIN, TMP, acts[4], tab, n_valid,
+                              [&](int j, int s, float v) { ps[s * PS + P_GAINS + j] = v; });
     // silence keeps the GRU states
-    for (int idx = tid; idx < S * (DV + DN + DH); idx += THREADS) {
-      const int s = idx / (DV + DN + DH), i = idx % (DV + DN + DH);
-      float* p = ps + s * PS;
-      if (p[P_MISC + 2] == 0.f) p[P_HV + i] = p[P_HV2 + i];  // HV..HD and HV2..HD2 are contiguous
+    for (int idx = tid; idx < (DV + DN + DH) * S; idx += THREADS) {
+      const int j = idx / S, s = idx % S;
+      if (ps[s * PS + P_MISC + 2] == 0.f) row(R_HV, j, s) = row(R_HV2, j, s);
     }
     }  // SK_RNN
     if (tid < n_valid) {
@@ -585,10 +638,14 @@ __global__ void __launch_bounds__(THREADS, 2) frame_kernel(const Args a) {
     for (int idx = tid; idx < n_valid * n; idx += THREADS)
       dst[(size_t)b0 * n + idx] = ps[(idx / n) * PS + off + idx % n];
   };
+  auto store_rows = [&](float* dst, int n, int r0) {
+    for (int idx = tid; idx < n_valid * n; idx += THREADS)
+      dst[(size_t)b0 * n + idx] = row(r0, idx % n, idx / n);
+  };
   store(a.cmem_o, CEPS * NB, P_CM);
-  store(a.hv_o, DV, P_HV);
-  store(a.hn_o, DN, P_HN);
-  store(a.hd_o, DH, P_HD);
+  store_rows(a.hv_o, DV, R_HV);
+  store_rows(a.hn_o, DN, R_HN);
+  store_rows(a.hd_o, DH, R_HD);
   store(a.lastg_o, NB, P_LASTG);
   if (tid < n_valid) {
     a.per_o[b0 + tid] = iper[tid];

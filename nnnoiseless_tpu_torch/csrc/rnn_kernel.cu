@@ -8,11 +8,8 @@
 // table, in that order (rnn.rs:343-379).  The stages are the register
 // tiles of rnn_tile.cuh.
 //
-// Layout.  Weights: K5's own tiled int8 layout
-// (ops/rnn_kernel.py::pack_tiled), six chunks in stage order, each
-// 16-byte aligned: [dense w | b], [vad wi; wr | b], [vad head w | b],
-// [noise wi; wr | b], [denoise wi; wr | b], [gains w | b], every matrix
-// (inputs x outputs) with its outputs padded to a multiple of 4.  At the
+// Layout.  Weights: the tiled int8 layout of ops/rnn_kernel.py::pack_tiled
+// (rnn_tile::layout), which K2 takes too: six chunks in stage order.  At the
 // start thread 0 issues one bulk copy (cp.async.bulk, the TMA's 1-D form)
 // per chunk, each completing on its own mbarrier, and every stage waits
 // only for its own chunk: the 60 KB of the denoise GRU arrive while the
@@ -55,27 +52,13 @@
 
 namespace {
 
-constexpr int NF = 42;
-constexpr int DD = 24, DV = 24, DN = 48, DH = 96, DG = 22;
+using rnn_tile::Runs;
+using namespace rnn_tile::layout;
+
 constexpr int TAB = 204;  // tansig table, 201 entries (padded)
 constexpr int SMALL_B = 1024;
-
-constexpr int align16(int x) { return (x + 15) / 16 * 16; }
-constexpr int pad4(int x) { return (x + 3) / 4 * 4; }
-constexpr int gru_bytes(int nin, int n) { return (nin + n) * 3 * n + 3 * n; }
-
-// byte offsets of the six weight chunks (ops/rnn_kernel.py::TILED)
-constexpr int NIN_NOISE = DD + DV + NF, NIN_DEN = DV + DN + NF;
-constexpr int O_DENSE = 0;
-constexpr int O_VAD = O_DENSE + align16(NF * DD + DD);
-constexpr int O_VADH = O_VAD + align16(gru_bytes(DD, DV));
-constexpr int O_NOISE = O_VADH + align16(DV * 4 + 1);
-constexpr int O_DEN = O_NOISE + align16(gru_bytes(NIN_NOISE, DN));
-constexpr int O_GAIN = O_DEN + align16(gru_bytes(NIN_DEN, DH));
-constexpr int W_BYTES = O_GAIN + align16(DH * pad4(DG) + DG);
 constexpr int N_CHUNKS = 6;
 __constant__ int CHUNK_OFF[N_CHUNKS + 1] = {O_DENSE, O_VAD, O_VADH, O_NOISE, O_DEN, O_GAIN, W_BYTES};
-static_assert(W_BYTES == 87808, "the tiled layout of ops/rnn_kernel.py::pack_tiled");
 
 // activation rows
 enum : int {
@@ -207,38 +190,40 @@ rnn_kernel(const float* __restrict__ tansig, const uint8_t* __restrict__ w,
   auto row = [&](int r, int j, int s) -> float& { return X[(r + j) * SP + s]; };
 
   bar_wait(bars + 0);
-  rnn_tile::dense<T, NF, DD>(X + (R_A + DD + DV) * SP, W + O_DENSE, TMP, acts[0], tab, n_valid,
-                             [&](int j, int s, float v) { row(R_V, j, s) = v; row(R_A, j, s) = v; });
+  rnn_tile::dense<T, DD>(Runs<NF>{{X + (R_A + DD + DV) * SP}}, W + O_DENSE, TMP, acts[0], tab, n_valid,
+                         [&](int j, int s, float v) { row(R_V, j, s) = v; row(R_A, j, s) = v; });
   __syncthreads();
   bar_wait(bars + 1);
-  rnn_tile::gru_gates<T, DD, DV>(X + R_V * SP, W + O_VAD, G, tab, n_valid);
+  rnn_tile::gru_gates<T, DV>(Runs<DD>{{X + R_V * SP}}, X + (R_V + DD) * SP, W + O_VAD, G, tab, n_valid);
   __syncthreads();
-  rnn_tile::gru_out<T, DD, DV>(X + R_V * SP, W + O_VAD, G, TMP, acts[1], tab, n_valid,
+  rnn_tile::gru_out<T, DD, DV>(X + (R_V + DD) * SP, W + O_VAD, G, TMP, acts[1], tab, n_valid,
                                [&](int j, int s, float v) {
                                  row(R_A + DD, j, s) = v;
                                  row(R_B, j, s) = v;
                                });
   __syncthreads();
   bar_wait(bars + 2);
-  rnn_tile::dense<T, DV, 1>(X + (R_A + DD) * SP, W + O_VADH, TMP, acts[5], tab, n_valid,
-                            [&](int, int s, float v) {
-                              if (s < n_valid) vad[b0 + s] = v;
-                            });
+  rnn_tile::dense<T, 1>(Runs<DV>{{X + (R_A + DD) * SP}}, W + O_VADH, TMP, acts[5], tab, n_valid,
+                        [&](int, int s, float v) {
+                          if (s < n_valid) vad[b0 + s] = v;
+                        });
   bar_wait(bars + 3);
-  rnn_tile::gru_gates<T, NIN_NOISE, DN>(X + R_A * SP, W + O_NOISE, G, tab, n_valid);
+  rnn_tile::gru_gates<T, DN>(Runs<NIN_NOISE>{{X + R_A * SP}}, X + (R_A + NIN_NOISE) * SP, W + O_NOISE, G,
+                             tab, n_valid);
   __syncthreads();
-  rnn_tile::gru_out<T, NIN_NOISE, DN>(X + R_A * SP, W + O_NOISE, G, TMP, acts[2], tab, n_valid,
+  rnn_tile::gru_out<T, NIN_NOISE, DN>(X + (R_A + NIN_NOISE) * SP, W + O_NOISE, G, TMP, acts[2], tab, n_valid,
                                       [&](int j, int s, float v) { row(R_B + DV, j, s) = v; });
   __syncthreads();
   bar_wait(bars + 4);
-  rnn_tile::gru_gates<T, NIN_DEN, DH>(X + R_B * SP, W + O_DEN, G, tab, n_valid);
+  rnn_tile::gru_gates<T, DH>(Runs<NIN_DEN>{{X + R_B * SP}}, X + (R_B + NIN_DEN) * SP, W + O_DEN, G, tab,
+                             n_valid);
   __syncthreads();
-  rnn_tile::gru_out<T, NIN_DEN, DH>(X + R_B * SP, W + O_DEN, G, TMP, acts[3], tab, n_valid,
+  rnn_tile::gru_out<T, NIN_DEN, DH>(X + (R_B + NIN_DEN) * SP, W + O_DEN, G, TMP, acts[3], tab, n_valid,
                                     [&](int j, int s, float v) { row(R_H2, j, s) = v; });
   __syncthreads();
   bar_wait(bars + 5);
-  rnn_tile::dense<T, DH, DG>(X + R_H2 * SP, W + O_GAIN, TMP, acts[4], tab, n_valid,
-                             [&](int j, int s, float v) { row(R_T, j, s) = v; });  // in place
+  rnn_tile::dense<T, DG>(Runs<DH>{{X + R_H2 * SP}}, W + O_GAIN, TMP, acts[4], tab, n_valid,
+                         [&](int j, int s, float v) { row(R_T, j, s) = v; });  // in place
   __syncthreads();
   copy_out<T, DV>(X + (R_A + DD) * SP, hv_o, b0, n_valid);
   copy_out<T, DN>(X + (R_B + DV) * SP, hn_o, b0, n_valid);

@@ -35,7 +35,7 @@ from .constants import FRAME_SIZE
 from .model import ModelMeta, RnnModel
 from .ops.frame_kernel import run_frame_loop
 from .ops.rnn import Rnn
-from .ops.rnn_kernel import pack_tiled, pack_weights
+from .ops.rnn_kernel import pack_tiled
 from .pipeline import DenoiseCarry, init_carry
 from .programs import FrameProgram, ScanProgram, assign, snapshot
 
@@ -58,8 +58,8 @@ def check_device(device) -> torch.device:
 
 class Engine:
     """A model's module state on one device, the engine that serves it, and
-    the kernels' packed int8 weights (built once): ``weights`` in K2's
-    layout, ``rnn_weights`` in K5's.
+    the kernels' packed int8 weights (built once): ``rnn_weights``, the
+    tiled layout K2 and K5 take.
 
     ``two_phase`` (precompute, then kernel K2) when ``fused`` is set and the
     model has the standard topology, the rule of the JAX package's
@@ -76,7 +76,6 @@ class Engine:
         standard = self.rnn.standard_topology()
         self.two_phase = fused and standard
         on_card = self.device.type == "cuda" and standard
-        self.weights = pack_weights(self.rnn, self.device) if on_card else None
         self.rnn_weights = pack_tiled(self.rnn, self.device) if on_card else None
         self.scan_programs: dict[int, ScanProgram] = {}
 
@@ -135,7 +134,7 @@ def process_chunk(engine: Engine, carry: DenoiseCarry, frames: torch.Tensor):
         with tracing.span("chunk.precompute"):
             pre, hp_out = precompute_chunk(carry.feat.input_mem, carry.feat.hp_mem, frames)
         with tracing.span("chunk.frame_loop"):
-            carry2, out, vad = run_frame_loop(engine.rnn, carry, pre, engine.weights)
+            carry2, out, vad = run_frame_loop(engine.rnn, carry, pre, engine.rnn_weights)
         return _with_hp_mem(carry2, hp_out), out, vad
 
 

@@ -53,7 +53,7 @@ from .bands import band_energies, interp_band_gain
 from .fft import dft_bases, fft960_table_on
 from .pitch import N_CAND, N_LAGS, candidate_lanes, remove_doubling_from_candidates
 from .rnn import Rnn, RnnState
-from .rnn_kernel import pack_weights
+from .rnn_kernel import check_tiled, pack_tiled
 
 OFF_VAD = 480
 OFF_PERIOD = 481
@@ -211,8 +211,8 @@ def _check(carry, filt, cand):
 
 def frame_loop_cuda(rnn: Rnn, weights: tuple, carry: tuple, filt, cand, skip: tuple = ()):
     """Launch K2 on the current CUDA stream.  ``weights``:
-    ops/rnn_kernel.py::pack_weights.  The kernel is built for ``skip`` of
-    at most one stage."""
+    ops/rnn_kernel.py::pack_tiled (another layout raises).  The kernel is
+    built for ``skip`` of at most one stage."""
     global launches
     mask = _skip_mask(skip)
     if len(set(skip)) > 1:
@@ -220,8 +220,8 @@ def frame_loop_cuda(rnn: Rnn, weights: tuple, carry: tuple, filt, cand, skip: tu
     _check(carry, filt, cand)
     if not rnn.standard_topology():
         raise ValueError("the frame kernel is built for the standard model topology")
-    tensors = (*carry, filt, cand, *weights)
-    if not all(a.is_contiguous() for a in tensors):
+    w, acts = check_tiled(weights, filt.device)
+    if not all(a.is_contiguous() for a in (*carry, filt, cand)):
         raise ValueError("frame kernel operands must be contiguous")
     t_count, b, _ = filt.shape
     packed = torch.empty((t_count, b, OUT_LANES), dtype=torch.float32, device=filt.device)
@@ -231,8 +231,8 @@ def frame_loop_cuda(rnn: Rnn, weights: tuple, carry: tuple, filt, cand, skip: tu
         stream = torch.cuda.current_stream(filt.device).cuda_stream
         ptr = lambda ts: [a.data_ptr() for a in ts]
         err = _build.library().nnt_frame_loop(
-            *ptr(tables), *ptr(weights), *ptr(carry), filt.data_ptr(), cand.data_ptr(),
-            packed.data_ptr(), *ptr(out), b, t_count, mask, stream,
+            *ptr(tables), w.data_ptr(), acts.data_ptr(), w.numel(), *ptr(carry), filt.data_ptr(),
+            cand.data_ptr(), packed.data_ptr(), *ptr(out), b, t_count, mask, stream,
         )
         _build.check(err, "nnt_frame_loop")
         launches += 1
@@ -249,7 +249,7 @@ def frame_loop(rnn: Rnn, carry: tuple, filt: torch.Tensor, cand: torch.Tensor,
     (SKIP_STAGES), for attribution only."""
     if filt.is_cuda:
         if weights is None:
-            weights = pack_weights(rnn, filt.device)
+            weights = pack_tiled(rnn, filt.device)
         return frame_loop_cuda(rnn, weights, carry, filt, cand, skip)
     if filt.device.type != "cpu":
         raise ValueError(f"unsupported device {filt.device}")

@@ -1,14 +1,15 @@
 """Kernel K5: one step of the whole RNN cell for a batch of streams.
 
 Replaces ``nnnoiseless_tpu/ops/rnn_pallas.py::rnn_step_pallas`` (body
-``_rnn_pallas``).  :func:`pack_weights` packs a model's int8 weights as
-kernel K2 takes them (one buffer in kernel order, offsets, activation
-codes); :func:`pack_tiled` as K5 takes them (its own tiled layout,
-:data:`TILED`).  :func:`rnn_step_cuda` launches ``csrc/rnn_kernel.cu``
-(stages in ``csrc/rnn_tile.cuh``); its plain version is
+``_rnn_pallas``).  :func:`pack_weights` gathers a model's int8 weights
+(one buffer in layer order, offsets, activation codes); :func:`pack_tiled`
+lays them out as kernels K2 and K5 take them (the tiled layout
+:data:`TILED`), and :func:`check_tiled` holds a kernel's operands to it.
+:func:`rnn_step_cuda` launches ``csrc/rnn_kernel.cu`` (stages in
+``csrc/rnn_tile.cuh``, which K2 runs too); its plain version is
 ``ops/rnn.py::Rnn.forward``, and ``ops/rnn.py::rnn_step`` picks between the
-two.  :func:`rnn_step_staged` is a plain mirror of the kernel's summing
-order, for the tests.
+two.  :func:`rnn_step_staged` is a plain mirror of the tiles' summing order
+(K5's at a batch, or K2's tile), for the tests.
 """
 
 from __future__ import annotations
@@ -73,10 +74,10 @@ TILED, TILED_CHUNKS, TILED_BYTES = _tiled_layout()  # 87,808 bytes
 
 
 def pack_weights(rnn, device: torch.device):
-    """An ``ops.rnn.Rnn``'s weights as K2 takes them: (int8 weights
-    concatenated in kernel order, int32 offsets, int32 activation codes) on
-    ``device``.  Every weight of a ``.rnn`` model is an int8 value, so int8
-    storage is exact; other weights raise."""
+    """An ``ops.rnn.Rnn``'s weights gathered: (int8 weights concatenated
+    in layer order, int32 offsets, int32 activation codes) on ``device``.
+    Every weight of a ``.rnn`` model is an int8 value, so int8 storage is
+    exact; other weights raise."""
     parts = [getattr(rnn, layer).get_buffer(name).reshape(-1) for layer, name in _WEIGHT_ORDER]
     flat = torch.cat(parts).to(device)
     as_i8 = flat.to(torch.int8)
@@ -91,7 +92,7 @@ def pack_weights(rnn, device: torch.device):
 
 
 def pack_tiled(rnn, device: torch.device):
-    """A standard-topology ``ops.rnn.Rnn``'s weights as K5 takes them:
+    """A standard-topology ``ops.rnn.Rnn``'s weights as K2 and K5 take them:
     (int8 buffer of :data:`TILED_BYTES` in the layout :data:`TILED`, zeros
     in the padding, int32 activation codes) on ``device``; built from
     :func:`pack_weights`, whose int8 check it shares."""
@@ -102,6 +103,24 @@ def pack_tiled(rnn, device: torch.device):
         src = flat[where[layer, name] : where[layer, name] + rows * cols].reshape(rows, cols)
         buf[off : off + rows * pad].view(rows, pad)[:, :cols] = src
     return buf.to(device), acts.to(device)
+
+
+def check_tiled(weights: tuple, device: torch.device) -> tuple:
+    """``weights`` as :func:`pack_tiled` gives them, (int8 buffer, int32
+    codes), contiguous on ``device`` and the buffer 16-byte aligned; raise
+    on anything else (the old layout of :func:`pack_weights` too)."""
+    if len(weights) != 2:
+        raise ValueError("weights must be pack_tiled's (buffer, codes)")
+    w, acts = weights
+    if (w.dtype, acts.dtype) != (torch.int8, torch.int32):
+        raise TypeError("weights must be pack_tiled's (int8, int32)")
+    if w.shape != (TILED_BYTES,) or acts.shape != (6,):
+        raise ValueError(f"weights must be pack_tiled's {TILED_BYTES} bytes and 6 codes")
+    if any(a.device != device or not a.is_contiguous() for a in weights):
+        raise ValueError(f"weights must be contiguous on {device}")
+    if w.data_ptr() % 16:
+        raise ValueError("the int8 weight buffer must be 16-byte aligned")
+    return w, acts
 
 
 def rnn_step_cuda(weights: tuple, hv, hn, hd, features):
@@ -119,15 +138,7 @@ def rnn_step_cuda(weights: tuple, hv, hn, hd, features):
             raise ValueError(f"{name} must be {(b, width)}, got {tuple(arr.shape)}")
         if arr.device != features.device or not arr.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {features.device}")
-    w, acts = weights
-    if (w.dtype, acts.dtype) != (torch.int8, torch.int32):
-        raise TypeError("weights must be pack_tiled's (int8, int32)")
-    if w.shape != (TILED_BYTES,) or acts.shape != (6,):
-        raise ValueError(f"weights must be pack_tiled's {TILED_BYTES} bytes and 6 codes")
-    if any(a.device != features.device or not a.is_contiguous() for a in weights):
-        raise ValueError(f"weights must be contiguous on {features.device}")
-    if w.data_ptr() % 16:
-        raise ValueError("the int8 weight buffer must be 16-byte aligned")
+    w, acts = check_tiled(weights, features.device)
     # one allocation for the five outputs (the per-frame path is bound by
     # host time), each a contiguous slice
     widths = (d["v"], d["n"], d["h"], d["g"], 1)
@@ -146,10 +157,11 @@ def rnn_step_cuda(weights: tuple, hv, hn, hd, features):
     return (*outs, vad)
 
 
-# ---- the plain mirror of the kernel's summing order -------------------------
+# ---- the plain mirror of the tiles' summing order ---------------------------
 
 SMALL_B = 1024  # csrc/rnn_kernel.cu: at or below, one stream a block
 _TILES = {"small": (1, 1, 576), "big": (32, 8, 576)}  # (streams, per thread, threads)
+FRAME_TILE = (8, 4, 256)  # csrc/frame_kernel.cuh: K2's RNN tile, one a block
 
 
 def tile_for(batch: int) -> tuple:
@@ -157,10 +169,10 @@ def tile_for(batch: int) -> tuple:
     return _TILES["small" if batch <= SMALL_B else "big"]
 
 
-def lanes(quads: int, batch: int) -> int:
+def lanes(quads: int, tile: tuple) -> int:
     """rnn_tile.cuh::lanes: the lanes a stage with ``quads`` output quads
-    splits each sum over (only the one-stream tile splits)."""
-    s, _, threads = tile_for(batch)
+    splits each sum over in ``tile`` (only the one-stream tile splits)."""
+    s, _, threads = tile
     if s > 1:
         return 1
     n = threads // quads
@@ -191,30 +203,34 @@ def _act(x, code: int):
     return {TANH: tansig_approx, SIGMOID: sigmoid_approx, RELU: relu}[code](x)
 
 
-def rnn_step_staged(rnn, state, features):
+def rnn_step_staged(rnn, state, features, tile: tuple | None = None):
     """One frame of (B, ...) streams through the stages of
-    ``csrc/rnn_tile.cuh`` in plain torch, with the kernel's summing order
-    at this batch (:func:`lanes`): every pre-activation is the bias plus
-    the input sum, z and r then add the state's sum, and the 1/256 scale
-    and the table activation follow.  Returns
-    (hv', hn', hd', gains (B, 22), vad (B,)) as ``rnn_step_cuda``."""
+    ``csrc/rnn_tile.cuh`` in plain torch, with the summing order of
+    ``tile`` (:func:`lanes`; by default K5's at this batch,
+    :func:`tile_for`): every pre-activation is the bias plus the input
+    sum, z and r then add the state's sum, and the 1/256 scale and the
+    table activation follow.  A GRU's input sum runs over the
+    concatenation of its inputs; K2 sums them as runs of rows in turn, in
+    one lane, which gives the same bits.  Returns (hv', hn', hd', gains
+    (B, 22), vad (B,)) as ``rnn_step_cuda``."""
     b = features.shape[0]
+    tile = tile_for(b) if tile is None else tile
 
     def dense(layer, x):
         m, code = getattr(rnn, layer), getattr(rnn.meta, layer).activation
-        ks = lanes(-(-m.w.shape[1] // 4), b)
+        ks = lanes(-(-m.w.shape[1] // 4), tile)
         return _act((m.b + _tile_sum(x, m.w, ks)) * WEIGHTS_SCALE, code)
 
     def gru(layer, x, h):
         m, code = getattr(rnn, layer), getattr(rnn.meta, layer).activation
         n = h.shape[1]
-        ks = lanes(3 * n // 4, b)
+        ks = lanes(3 * n // 4, tile)
         pre = m.b + _tile_sum(x, m.wi, ks)
         zr = pre[:, : 2 * n] + _tile_sum(h, m.wr[:, : 2 * n], ks)
         cand = pre[:, 2 * n :]
         z = sigmoid_approx(zr[:, :n] * WEIGHTS_SCALE)
         rh = h * sigmoid_approx(zr[:, n:] * WEIGHTS_SCALE)
-        hh = _act((cand + _tile_sum(rh, m.wr[:, 2 * n :], lanes(n // 4, b))) * WEIGHTS_SCALE, code)
+        hh = _act((cand + _tile_sum(rh, m.wr[:, 2 * n :], lanes(n // 4, tile))) * WEIGHTS_SCALE, code)
         return z * h + (1.0 - z) * hh
 
     hv, hn, hd = state

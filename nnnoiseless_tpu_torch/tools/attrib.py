@@ -194,7 +194,7 @@ def _stages(engine, b, t, device, time_ms) -> dict:
     frames = _frames(b, t, device)
     carry = init_batch_carry(engine.model.meta, b, device)
     pre, _ = precompute_chunk(carry.feat.input_mem, carry.feat.hp_mem, frames)
-    rnn, w = engine.rnn, engine.weights
+    rnn, w = engine.rnn, engine.rnn_weights
     production = fk.run_frame_loop(rnn, carry, pre, w)
     res = {"batch": b, "ms": {}, "cost_ms": {}, "launches": {}, "finite": {}}
     for skip in STAGES:

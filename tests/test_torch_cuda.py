@@ -120,7 +120,7 @@ def test_frame_kernel_matches_plain(device, engine):
     carry = nt.init_batch_carry(engine.model.meta, b, device)
     pre, _ = precompute_chunk(carry.feat.input_mem, carry.feat.hp_mem, frames)
     ca = fk.carry_arrays(carry)
-    packed_k, carry_k = fk.frame_loop_cuda(engine.rnn, engine.weights, ca, pre.filtered, pre.cand)
+    packed_k, carry_k = fk.frame_loop_cuda(engine.rnn, engine.rnn_weights, ca, pre.filtered, pre.cand)
     packed_p, carry_p = fk.frame_loop_plain(engine.rnn, ca, pre.filtered, pre.cand)
     d = (packed_k[..., :480] - packed_p[..., :480]).double().abs()
     assert float((d**2).sum() / (packed_p[..., :480].double() ** 2).sum()) < 1e-3
@@ -276,8 +276,13 @@ def test_wrappers_refuse_bad_operands(device, engine):
     state = torch.zeros((2, 24), device=device)
     with pytest.raises(ValueError):
         rk.rnn_step_cuda(engine.rnn_weights, state, state, state, torch.zeros((2, 42), device=device))
-    with pytest.raises(ValueError):  # K2's layout is not K5's
-        rk.rnn_step_cuda(engine.weights[0::2], *(torch.zeros((2, n), device=device) for n in (24, 48, 96, 42)))
+    old = rk.pack_weights(engine.rnn, device)  # the layer-order buffer is neither kernel's layout
+    with pytest.raises(ValueError):
+        rk.rnn_step_cuda(old[0::2], *(torch.zeros((2, n), device=device) for n in (24, 48, 96, 42)))
+    filt = torch.zeros((1, 2, 480), device=device)
+    for weights in (old, old[0::2]):
+        with pytest.raises(ValueError):
+            fk.frame_loop_cuda(engine.rnn, weights, carry, filt, torch.zeros((1, 2, 105), device=device))
     with pytest.raises(ValueError):  # float4 reads need a 16-byte aligned history
         wk.window_cuda(torch.zeros(2 * 1728 + 1, device=device)[1:].view(2, 1728),
                        torch.zeros(2, dtype=torch.int32, device=device))
@@ -321,8 +326,8 @@ def _skip_inputs(device, engine):
 
 def test_frame_kernel_skip_none_is_production(device, engine):
     ca, pre = _skip_inputs(device, engine)
-    prod = fk.frame_loop_cuda(engine.rnn, engine.weights, ca, pre.filtered, pre.cand)
-    none = fk.frame_loop_cuda(engine.rnn, engine.weights, ca, pre.filtered, pre.cand, skip=())
+    prod = fk.frame_loop_cuda(engine.rnn, engine.rnn_weights, ca, pre.filtered, pre.cand)
+    none = fk.frame_loop_cuda(engine.rnn, engine.rnn_weights, ca, pre.filtered, pre.cand, skip=())
     for a, b in zip((prod[0], *prod[1]), (none[0], *none[1])):
         assert torch.equal(a, b)
 
@@ -333,7 +338,7 @@ def test_frame_kernel_skip_matches_plain(device, engine, stage):
     waveform bars against the plain version's stub."""
     ca, pre = _skip_inputs(device, engine)
     fk.launches = 0
-    packed_k, carry_k = fk.frame_loop(engine.rnn, ca, pre.filtered, pre.cand, engine.weights, skip=(stage,))
+    packed_k, carry_k = fk.frame_loop(engine.rnn, ca, pre.filtered, pre.cand, engine.rnn_weights, skip=(stage,))
     assert fk.launches == 1
     packed_p, carry_p = fk.frame_loop_plain(engine.rnn, ca, pre.filtered, pre.cand, skip=(stage,))
     assert bool(torch.isfinite(packed_k).all())
@@ -342,7 +347,7 @@ def test_frame_kernel_skip_matches_plain(device, engine, stage):
     assert float((packed_k[..., 481] == packed_p[..., 481]).double().mean()) >= 0.98
     other = "rd" if stage == "inv" else "inv"
     with pytest.raises(ValueError):  # the kernel stubs one stage at a time
-        fk.frame_loop(engine.rnn, ca, pre.filtered, pre.cand, engine.weights, skip=(stage, other))
+        fk.frame_loop(engine.rnn, ca, pre.filtered, pre.cand, engine.rnn_weights, skip=(stage, other))
 
 
 def test_fft_probe_matches_float64(device):

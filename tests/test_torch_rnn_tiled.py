@@ -1,8 +1,9 @@
-"""K5's register-tiled design on the CPU: the plain mirror of its summing
-order (ops/rnn_kernel.py::rnn_step_staged) against the JAX rnn_step and
-the Pallas RNN kernel in interpret mode, at both of the kernel's tiles;
-its weight layout (pack_tiled) against K2's (pack_weights); and
-denoise_audio's one-chunk-at-a-time upload.
+"""The register-tiled RNN stages of K5 and K2 on the CPU: the plain mirror
+of their summing order (ops/rnn_kernel.py::rnn_step_staged) against the
+JAX rnn_step and the Pallas RNN kernel in interpret mode, at both of K5's
+tiles, and K2's tile in input order; the tiled weight layout (pack_tiled)
+against the layer-order buffer (pack_weights); and denoise_audio's
+one-chunk-at-a-time upload.
 
 Bar: 2e-5 absolute, as tests/test_torch_rnn_kernel.py states it: the sums
 run in another order than the JAX package's (lanes of k, then halving);
@@ -66,6 +67,31 @@ def test_staged_matches(inputs, want, default_model, b, against):
         np.testing.assert_allclose(g.numpy(), w[:b], atol=ATOL, rtol=0, err_msg=name)
 
 
+@pytest.mark.parametrize("b", [8, 13, 1536])  # one of K2's 8-stream tiles, a ragged second, many
+def test_frame_tile_sums_in_input_order(inputs, want, default_model, b):
+    """K2's RNN tile (FRAME_TILE, csrc/frame_kernel.cuh): every stage sums
+    in one lane, so a GRU's input sum over its runs of rows in turn
+    (rnn_tile.cuh::tile_sums) is one sum in input order, bit-equal to the
+    mirror's sum over their concatenation; the mirror at that tile within
+    the bar of the JAX rnn_step."""
+    assert [rk.lanes(q, rk.FRAME_TILE) for q in (6, 18, 36, 12, 72, 24, 1)] == [1] * 7
+    state, feats = inputs
+    rnn = Rnn.from_params(default_model.params, default_model.meta, "cpu")
+    st, f = tuple(torch.from_numpy(s[:b]) for s in state), torch.from_numpy(feats[:b])
+    hv, hn, hd = st
+    for layer, runs in (("noise_gru", (hd[:, :24], hv, f)), ("denoise_gru", (hv, hn, f))):
+        wi = getattr(rnn, layer).wi
+        acc, k0 = torch.zeros((b, wi.shape[1])), 0
+        for x in runs:  # one fmaf a step, rounded once, run after run
+            for k in range(x.shape[1]):
+                acc = (acc.double() + x[:, k, None].double() * wi[k0 + k].double()).float()
+            k0 += x.shape[1]
+        assert torch.equal(acc, rk._tile_sum(torch.cat(runs, 1), wi, rk.lanes(wi.shape[1] // 4, rk.FRAME_TILE))), layer
+    got = rk.rnn_step_staged(rnn, st, f, tile=rk.FRAME_TILE)
+    for name, g, w in zip(OUTPUTS, got, want["jax"]):
+        np.testing.assert_allclose(g.numpy(), w[:b], atol=ATOL, rtol=0, err_msg=name)
+
+
 def test_tiles_and_lanes():
     """The tile a batch takes and the lanes of each stage, as
     csrc/rnn_kernel.cu and rnn_tile.cuh choose them."""
@@ -73,8 +99,8 @@ def test_tiles_and_lanes():
     assert rk.tile_for(rk.SMALL_B + 1) == rk.tile_for(4096) == (32, 8, 576)
     # output quads of the stages: dense 6, vad GRU 18 and 6, noise 36 and
     # 12, denoise 72 and 24, the vad head 1
-    assert [rk.lanes(q, 1) for q in (6, 18, 36, 12, 72, 24, 1)] == [32, 32, 16, 32, 8, 16, 32]
-    assert [rk.lanes(q, 4096) for q in (6, 18, 36, 12, 72, 24, 1)] == [1] * 7
+    assert [rk.lanes(q, rk.tile_for(1)) for q in (6, 18, 36, 12, 72, 24, 1)] == [32, 32, 16, 32, 8, 16, 32]
+    assert [rk.lanes(q, rk.tile_for(4096)) for q in (6, 18, 36, 12, 72, 24, 1)] == [1] * 7
 
 
 def test_pack_tiled_round_trip():

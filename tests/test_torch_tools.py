@@ -102,6 +102,11 @@ SASS = """
         /*00a0*/                   EXIT ;
 		Function : _Z10frame_loopPf
         /*0000*/                   FFMA R6, R2, R4, R6 ;
+		Function : _ZN12_GLOBAL__N_112frame_kernelILi0EEEvN5frame4ArgsE
+        /*0000*/                   LDG.E.CONSTANT R2, desc[UR4][R2.64] ;
+        /*0010*/                   PRMT R3, R2, 0x7440, R9 ;
+        /*0020*/                   LDS.128 R4, [R8] ;
+        /*0030*/                   FFMA R6, R4, R3, R6 ;
 		Function : _ZN12_GLOBAL__N_117candidates_kernelEPKfS1_S1_PKiPfi
         /*0000*/                   LDG.E.CONSTANT R2, desc[UR4][R2.64] ;
         /*0010*/              @!P0 LDG.E.CONSTANT R3, desc[UR4][R4.64] ;
@@ -113,15 +118,19 @@ SASS = """
 
 
 def test_kernel_ab_sass_counts():
-    """Counts over the whole function, for K4's, K5's and K6's kernels
-    only; predicated instructions, I2FP and every width of a load or store
-    count."""
+    """Counts over the whole function, for K2's, K4's, K5's and K6's
+    kernels only; predicated instructions, I2FP and every width of a load
+    or store count; K2's summary reads its production instance."""
     counts = kernel_ab.sass_counts(SASS)
-    assert len(counts) == 2
+    assert len(counts) == 3
     (rnn,) = (c for name, c in counts.items() if "rnn_kernel" in name)
     (cand,) = (c for name, c in counts.items() if "candidates_kernel" in name)
+    (frame,) = (c for name, c in counts.items() if "frame_kernel" in name)
     assert rnn == {"FFMA": 1, "LDS": 2, "I2F": 2, "PRMT": 1, "FADD": 1, "LDG": 0, "STG": 0, "STS": 1}
     assert cand == {"FFMA": 0, "LDS": 0, "I2F": 0, "PRMT": 0, "FADD": 0, "LDG": 2, "STG": 2, "STS": 0}
+    assert frame == {"FFMA": 1, "LDS": 1, "I2F": 0, "PRMT": 1, "FADD": 0, "LDG": 1, "STG": 0, "STS": 0}
+    summary = kernel_ab.k2_summary({"res": {}, "sass": counts})
+    assert "per FFMA {'LDS': 1.0, 'LDG': 1.0, 'I2F': 0.0, 'PRMT': 1.0}" in summary
 
 
 RES_USAGE = """

@@ -140,7 +140,10 @@ class StepProgram:
     seconds of the warm-up step and of the capture with the graph's
     instantiation), :attr:`replays`, :attr:`warmups`, and
     :attr:`graph_nodes`: the nodes of the captured graph, the device
-    operations of one replay as the program counts them (0 on the CPU).
+    operations of one replay as the program counts them (0 on the CPU),
+    and :attr:`phase_nodes`: the nodes of each phase the step marked with
+    ``tracing.phase`` during the capture, in capture order (a step's nodes
+    after its last mark belong to no phase; empty on the CPU).
     Under :mod:`tracing` each replay is the span ``program.replay``.
     """
 
@@ -153,6 +156,7 @@ class StepProgram:
         self.pool_bytes = 0
         self.warmup_s = self.capture_s = 0.0
         self.graph_nodes = 0
+        self.phase_nodes: dict = {}
         self.replays = 0
         self.warmups = 0
 
@@ -201,8 +205,10 @@ class StepProgram:
         gc.disable()
         try:
             with torch.cuda.graph(graph):
-                self._step()
-                nodes = _capture_nodes(torch.cuda.current_stream(dev))
+                stream = torch.cuda.current_stream(dev)
+                with tracing.phase_marks(lambda: _capture_nodes(stream)) as marks:
+                    self._step()
+                nodes = _capture_nodes(stream)
         finally:
             if collecting:
                 gc.enable()
@@ -212,6 +218,7 @@ class StepProgram:
         self.captured = {k: after[k] - before[k] for k in before if after[k] != before[k]}
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.graph_nodes = nodes
+        self.phase_nodes = marks.nodes()
         self.graph = graph
 
 

@@ -36,6 +36,17 @@ Tracing is off unless a caller asks for it, in one of two ways:
 Otherwise :func:`span` returns one shared null context, :data:`OFF`, and
 does nothing else.  No span is opened inside a step that a CUDA graph
 captures: it would run once at the capture and never at a replay.
+
+Inside such a step the host marks the ends of its phases instead:
+:func:`phase` records the nodes the capture holds so far, read only while
+``programs.StepProgram`` captures (:func:`phase_marks`), and does nothing
+at any other time.  The train steps mark ``forward.front``,
+``forward.gru`` and ``forward.head`` (RNNoise 0.2's network) or
+``forward`` (the 2018 network), then ``loss``, ``backward`` and
+``optimizer``; the program keeps each phase's nodes as
+``StepProgram.phase_nodes``.  A graph captured from one stream is a chain,
+so its nodes run in capture order and a replay's device operations, in
+order of start, fall into the phases in turn.
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ from .ops.counters import launch_counts
 
 OFF = contextlib.nullcontext()
 _current: contextvars.ContextVar = contextvars.ContextVar("nnt_recording", default=None)
+_marks: contextvars.ContextVar = contextvars.ContextVar("nnt_phase_marks", default=None)
 
 
 class Span:
@@ -159,3 +171,42 @@ def recording():
     finally:
         _current.reset(token)
         rec._resolve()
+
+
+class PhaseMarks:
+    """The phase ends marked inside one :func:`phase_marks` block:
+    ``ends`` holds (name, nodes recorded so far) in the order marked."""
+
+    def __init__(self, count_nodes):
+        self._count = count_nodes
+        self.ends: list = []
+
+    def nodes(self) -> dict:
+        """Each phase's own nodes, from the previous mark (or the block's
+        start) to its own, in the order marked."""
+        out, at = {}, 0
+        for name, end in self.ends:
+            if name in out:
+                raise ValueError(f"the phase {name!r} was marked twice in one step")
+            out[name], at = end - at, end
+        return out
+
+
+def phase(name: str) -> None:
+    """Mark the end of the phase ``name`` of a step under capture: the
+    capture's node count is kept; outside :func:`phase_marks`, nothing."""
+    marks = _marks.get()
+    if marks is not None:
+        marks.ends.append((name, marks._count()))
+
+
+@contextlib.contextmanager
+def phase_marks(count_nodes):
+    """Keep the phase ends that this thread marks inside the block, each
+    with ``count_nodes()``, the nodes the capture holds at that point."""
+    marks = PhaseMarks(count_nodes)
+    token = _marks.set(marks)
+    try:
+        yield marks
+    finally:
+        _marks.reset(token)

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import tracing
 from ..model import (
     GRU_LAYERS,
     LAYERS,
@@ -40,6 +41,7 @@ from ..model import (
     RnnModel,
     quantize_weights,
 )
+from .losses import l2_regularization, total_loss
 
 DEFAULT_META = ModelMeta(
     input_dense=LayerMeta(42, 24, TANH),
@@ -78,6 +80,17 @@ class TrainableModel(nn.Module):
 
     def forward(self, features: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         return sequence_forward(self, features)
+
+    def batch_loss(self, batch: dict, sample_weight=None) -> torch.Tensor:
+        """The 2018 recipe's loss of a batch {features (B,T,42), gains
+        (B,T,22), vad (B,T,1)}: ``total_loss`` + ``l2_regularization``."""
+        gains_pred, vad_pred = sequence_forward(self, batch["features"])
+        tracing.phase("forward")
+        return total_loss(batch["gains"], gains_pred, batch["vad"], vad_pred, sample_weight) \
+            + l2_regularization(self)
+
+    def post_step(self) -> None:
+        clip_params(self)  # Keras WeightClip(0.499) constraint
 
 
 def init_train_params(generator: torch.Generator, meta: ModelMeta = DEFAULT_META) -> TrainableModel:

@@ -3,7 +3,12 @@ over a 1-D ``torch.distributed`` device mesh.
 
 The counterpart of ``nnnoiseless_tpu/training/train.py``, the equivalent of
 train/rnn_train.py (same topology, losses, loss weights, sequence length
-2000, batch 32, sample reweighting by mean gain tertile).  The dataset goes
+2000, batch 32, sample reweighting by mean gain tertile).  A second
+topology, RNNoise 0.2's network (:mod:`.rn02`), trains by its own recipe
+(xiph/rnnoise v0.2 ``torch/rnnoise/train_rnnoise.py``: its loss, AdamW
+with the learning rate ``lr / (1 + d step)``, batch 128, no sample
+weights, no l2, no clip) on one device:
+``fit(..., topology="rnnoise-0.2")``.  The dataset goes
 to the device once; each step gathers its batch there from a (B,) index
 vector (:func:`train_step_indexed`).  Over a mesh every rank holds the
 whole dataset and takes its slice of each step's index vector, and one
@@ -16,6 +21,8 @@ Usage::
 
     python -m nnnoiseless_tpu_torch.training.train --data training.h5 \
         --epochs 20 --out weights.rnn --device cuda
+    python -m nnnoiseless_tpu_torch.training.train --topology rnnoise-0.2 \
+        --data features.f32 --epochs 20 --out weights.pth --device cuda
 """
 
 from __future__ import annotations
@@ -30,11 +37,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..constants import NB_BANDS, NB_FEATURES
 from ..denoise import check_device
 from ..model import ModelMeta
 from ..programs import TrainProgram
 from .losses import l2_regularization, total_loss
+from . import rn02
 from .network import (
     DEFAULT_META,
     TrainableModel,
@@ -44,6 +53,9 @@ from .network import (
     numpy_params,
     sequence_forward,
 )
+
+
+TOPOLOGIES = {"rnnoise-2018": DEFAULT_META, "rnnoise-0.2": rn02.RN02_META}  # name: published widths
 
 
 def make_optimizer(model: TrainableModel, learning_rate: float = 1e-3,
@@ -76,6 +88,23 @@ def make_optimizer(model: TrainableModel, learning_rate: float = 1e-3,
     return opt
 
 
+def make_adamw(model: rn02.Rn02Model, learning_rate: float = 1e-3,
+               lr_decay: float = rn02.LR_DECAY) -> torch.optim.AdamW:
+    """RNNoise 0.2's optimizer (train_rnnoise.py): AdamW, betas (0.8, 0.98),
+    eps 1e-8, torch's default weight decay 0.01, the learning rate
+    ``learning_rate / (1 + lr_decay * n)`` after n updates (its
+    ``LambdaLR``), set by the step itself on the device from AdamW's update
+    count.  Device, state and learning-rate tensor as
+    :func:`make_optimizer`'s."""
+    opt = torch.optim.AdamW(
+        [{"params": list(model.parameters()), "base_lr": learning_rate, "cosine_steps": None,
+          "lr_decay": lr_decay}],
+        lr=learning_rate, betas=rn02.BETAS, eps=rn02.ADAM_EPS, weight_decay=rn02.WEIGHT_DECAY,
+    )
+    _adam_for_device(opt)
+    return opt
+
+
 def _adam_for_device(opt: torch.optim.Adam) -> None:
     """Adam's settings and state for its parameters' device: capturable on a
     card only, the learning rate a 0-d float32 tensor there, each
@@ -101,40 +130,49 @@ def updates_taken(opt: torch.optim.Adam) -> int:
 
 
 def _apply_schedule(opt: torch.optim.Adam) -> None:
-    """Set each cosine group's learning rate in place from Adam's update
-    count, on the device (no host read, so a captured step recomputes it
-    at every replay)."""
+    """Set each cosine or decaying group's learning rate in place from the
+    update count, on the device (no host read, so a captured step
+    recomputes it at every replay)."""
     for group in opt.param_groups:
         steps = group["cosine_steps"]
         if steps is not None:
             count = opt.state[group["params"][0]]["step"].clamp(max=steps)
             group["lr"].copy_(group["base_lr"] * (0.5 * (1.0 + torch.cos(math.pi * count / steps))))
+        decay = group.get("lr_decay")
+        if decay is not None:
+            count = opt.state[group["params"][0]]["step"]
+            group["lr"].copy_(group["base_lr"] / (1.0 + decay * count))
 
 
-def train_step(model: TrainableModel, opt: torch.optim.Adam, batch: dict,
+def train_step(model: TrainableModel | rn02.Rn02Model, opt: torch.optim.Optimizer, batch: dict,
                sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One step on a batch {features (B,T,42), gains (B,T,22), vad (B,T,1)}:
-    the loss (total_loss + l2_regularization), its gradient, the Adam
-    update, then the weight clip.  Returns the loss as a device scalar."""
-    gains_pred, vad_pred = sequence_forward(model, batch["features"])
-    loss = total_loss(batch["gains"], gains_pred, batch["vad"], vad_pred, sample_weight) \
-        + l2_regularization(model)
+    """One step on a batch {features, gains, vad}: the model's loss
+    (``batch_loss``: for a :class:`TrainableModel` total_loss +
+    l2_regularization, for an :class:`rn02.Rn02Model` the 0.2 loss), its
+    gradient, the optimizer's update, then the model's ``post_step`` (the
+    2018 weight clip; nothing for 0.2).  Returns the loss as a device
+    scalar.  The phases are marked for a capture (``tracing.phase``)."""
+    loss = model.batch_loss(batch, sample_weight)
+    tracing.phase("loss")
     opt.zero_grad(set_to_none=True)
     loss.backward()
+    tracing.phase("backward")
     _apply_schedule(opt)
     opt.step()
-    clip_params(model)  # Keras WeightClip(0.499) constraint
+    model.post_step()
+    tracing.phase("optimizer")
     return loss.detach()
 
 
-def train_step_indexed(model: TrainableModel, opt: torch.optim.Adam, data: dict,
-                       idx: torch.Tensor, seq_weights: torch.Tensor) -> torch.Tensor:
+def train_step_indexed(model: TrainableModel | rn02.Rn02Model, opt: torch.optim.Optimizer, data: dict,
+                       idx: torch.Tensor, seq_weights: Optional[torch.Tensor]) -> torch.Tensor:
     """One step on rows ``idx`` of a dataset on the device: the batch is
     gathered there, so only the (B,) index vector crosses per step.
     ``data`` holds the full {features, gains, vad} tensors (sequence-major),
-    ``seq_weights`` the per-sequence sample weights."""
+    ``seq_weights`` the per-sequence sample weights (None for RNNoise 0.2,
+    whose recipe has none)."""
     batch = {k: v.index_select(0, idx) for k, v in data.items()}
-    sw = seq_weights.index_select(0, idx)[:, None].expand(batch["vad"].shape[:2])
+    sw = None if seq_weights is None else seq_weights.index_select(0, idx)[:, None].expand(batch["vad"].shape[:2])
     return train_step(model, opt, batch, sw)
 
 
@@ -284,7 +322,8 @@ def fit(
     batch_size: int = 32,
     learning_rate: float = 1e-3,
     seed: int = 0,
-    meta: ModelMeta = DEFAULT_META,
+    topology: str | ModelMeta | rn02.Rn02Meta = "rnnoise-2018",
+    lr_decay: float = rn02.LR_DECAY,
     log_every: int = 10,
     checkpoint_dir: Optional[str] = None,
     checkpoint_every: int = 500,
@@ -297,6 +336,14 @@ def fit(
 ) -> dict:
     """Train on ``device`` and return float params as numpy arrays in the
     JAX package's layout.
+
+    ``topology``: a name of :data:`TOPOLOGIES` at its published widths, or
+    the widths themselves, whose type names the topology: a ``ModelMeta``
+    is the 2018 network of :mod:`.network`, an :class:`rn02.Rn02Meta`
+    RNNoise 0.2's (:mod:`.rn02`: rows of 65 features, 32 gains and 1 VAD;
+    its recipe: :func:`make_adamw` with ``lr_decay``, no sample weights, no
+    clip; returned as its state dict's numpy arrays; one device, no
+    ``lr_schedule``).
 
     ``lr_schedule``: None (constant) or "cosine" (cosine decay to 0 over
     ``total_steps``, by default the whole run).  ``history`` (if given)
@@ -326,6 +373,14 @@ def fit(
     collective if nothing ran one before, and creates NCCL's communicator.
     """
     device = check_device(device)
+    if isinstance(topology, str):
+        if topology not in TOPOLOGIES:
+            raise ValueError(f"unknown topology {topology!r}; one of {', '.join(TOPOLOGIES)}")
+        topology = TOPOLOGIES[topology]
+    meta = topology
+    is_02 = isinstance(meta, rn02.Rn02Meta)
+    if is_02 and (mesh is not None or lr_schedule is not None):
+        raise ValueError("rnnoise-0.2 trains on one device by its own schedule: no mesh, no lr_schedule")
     rank = 0
     if mesh is not None:
         if mesh.ndim != 1 or mesh.mesh_dim_names != ("dp",):
@@ -343,14 +398,18 @@ def fit(
         cosine_steps = None
     else:
         raise ValueError(f"unknown lr_schedule {lr_schedule!r}")
-    model = init_train_params(torch.Generator().manual_seed(seed), meta).to(device)
-    opt = make_optimizer(model, learning_rate, cosine_steps)
+    if is_02:
+        model = rn02.init_params(torch.Generator().manual_seed(seed), meta).to(device)
+        opt = make_adamw(model, learning_rate, lr_decay)
+    else:
+        model = init_train_params(torch.Generator().manual_seed(seed), meta).to(device)
+        opt = make_optimizer(model, learning_rate, cosine_steps)
     step = 0
     if resume_from:
         step = restore_checkpoint(resume_from, model, opt)
         if rank == 0:
             print(f"resumed from {resume_from} at step {step}")
-    seq_w = torch.as_tensor(compute_sample_weights(gains), device=device)
+    seq_w = None if is_02 else torch.as_tensor(compute_sample_weights(gains), device=device)
     n = len(features)
     rng = np.random.RandomState(seed)
     data = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
@@ -383,17 +442,23 @@ def fit(
     if mesh is not None and checkpoint_dir:
         # no rank returns before the last checkpoint exists
         dist.barrier(group=mesh.get_group(), device_ids=[device.index] if device.type == "cuda" else None)
-    return numpy_params(model)
+    return rn02.numpy_params(model) if is_02 else numpy_params(model)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Train a denoise model")
-    ap.add_argument("--data", required=True, help="training.h5 (87-col schema)")
+    ap.add_argument("--topology", default="rnnoise-2018", choices=tuple(TOPOLOGIES),
+                    help="the 2018 network (default) or RNNoise 0.2's, by its own recipe")
+    ap.add_argument("--data", required=True,
+                    help="training.h5 (87-col schema); for rnnoise-0.2 a raw float32 file of 98-float frames")
     ap.add_argument("--epochs", type=int, default=20)
-    ap.add_argument("--batch-size", type=int, default=32)
+    ap.add_argument("--batch-size", type=int, default=None, help="default 32; 128 for rnnoise-0.2")
     ap.add_argument("--window", type=int, default=2000)
     ap.add_argument("--lr", type=float, default=1e-3)
-    ap.add_argument("--out", default="weights.rnn")
+    ap.add_argument("--lr-decay", type=float, default=rn02.LR_DECAY,
+                    help="rnnoise-0.2: the learning rate is lr / (1 + decay * step)")
+    ap.add_argument("--out", default=None,
+                    help="weights.rnn (int8 export; default), or for rnnoise-0.2 weights.pth (torch state dict)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--checkpoint-dir", default=None, help="checkpoint directory (torch.save)")
     ap.add_argument("--checkpoint-every", type=int, default=500)
@@ -406,25 +471,33 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     check_device(args.device)
-    features, gains, vad = load_h5(args.data, args.window)
+    is_02 = args.topology == "rnnoise-0.2"
+    load = rn02.load_f32 if is_02 else load_h5
+    features, gains, vad = load(args.data, args.window)
     print(f"{len(features)} sequences of {args.window} frames")
     params = fit(
         features,
         gains,
         vad,
         epochs=args.epochs,
-        batch_size=args.batch_size,
+        batch_size=args.batch_size or (rn02.BATCH_SIZE if is_02 else 32),
         learning_rate=args.lr,
         seed=args.seed,
+        topology=args.topology,
+        lr_decay=args.lr_decay,
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every,
         resume_from=args.resume,
         lr_schedule=args.lr_schedule,
         device=args.device,
     )
-    with open(args.out, "wb") as f:
-        f.write(export_model(params).to_bytes())
-    print(f"wrote {args.out}")
+    out = args.out or ("weights.pth" if is_02 else "weights.rnn")
+    if is_02:
+        torch.save({k: torch.from_numpy(v) for k, v in params.items()}, out)
+    else:
+        with open(out, "wb") as f:
+            f.write(export_model(params).to_bytes())
+    print(f"wrote {out}")
 
 
 if __name__ == "__main__":

@@ -1,0 +1,9 @@
+"""Device ms of the three GRUs' forward in one replay of RNNoise 0.2's
+train step: the operations of the phase ``forward.gru``
+(perf_bench/metrics/phases.py)."""
+
+from perf_bench.metrics import phases
+
+
+def read(ctx):
+    return phases.phase_ms(ctx, "forward.gru")

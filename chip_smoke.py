@@ -128,7 +128,18 @@
    same state (bit-equal), ms a step over 5 replays beside the eager
    data-parallel steps' and phase 17's one-device program's, one replay's
    host launches (at most 3), device operations and NCCL kernels (at
-   least 1) by torch.profiler.
+   least 1) by torch.profiler;
+19. kernel K7, the trainer's GRU recurrence over whole sequences
+   (ops/gru_seq.py), for each of the 2018 network's three GRUs at
+   train-32x2000's B = 32, T = 2000 from the trainer's init: one forward
+   and one backward launch against the plain loops on the card (states
+   and gates within 2e-5, dXW within 1e-4 of its largest magnitude), then
+   each launch timed cold (3 calls, each on its own copy of the inputs)
+   beside the plain loop's time, the roofline bound and the bound that
+   holds, latency: T frames of two dependent mat-vecs, wr read once;
+   each direction's launches counted from just before its own call (1
+   each).  Phase 17 also reads the captured train step's K7 launches by
+   direction (3 forward, 3 backward), which K7's rows carry.
 
 Any failure exits non-zero before the last line.  The last two lines are a
 JSON object with each kernel's launches, error, times and bound, and
@@ -221,6 +232,11 @@ HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "c
                  "cudaMemcpyAsync", "cudaMemsetAsync", "cudaGraphLaunch", "cuGraphLaunch")
 SCAN_LAUNCH_BAR = 12
 PROFILED_CALLS = 20  # phase 8: process_frame calls under torch.profiler
+# phase 19: kernel K7 at train-32x2000's (B, T), its cold calls, and its bars
+# against the plain loops (tests/test_torch_gru_sequence.py's)
+GRU_SHAPE = (32, 2000)
+GRU_REPS = 3
+GRU_H_BAR, GRU_GRAD_BAR = 2e-5, 1e-4
 
 
 def fft960_flops() -> int:
@@ -910,6 +926,12 @@ def training_phase(torch, dev, card: str, reset_counts, counts) -> dict:
             failures.append("the trainer's losses are not finite or a weight passed the clip")
         if fit_calls != (1, TRAIN_STEPS):
             failures.append(f"fit did not run one program replay a step: {fit_calls}")
+        k7_step = {"backward": tp.captured.get("K7 backward", 0)}
+        k7_step["forward"] = tp.captured.get("K7", 0) - k7_step["backward"]
+        print(f"[17] the train step's captured launches: {tp.captured}; K7 forward {k7_step['forward']}, "
+              f"backward {k7_step['backward']} (3 and 3)")
+        if k7_step != {"forward": 3, "backward": 3}:
+            failures.append(f"the train step did not capture 3 forward and 3 backward K7 launches: {tp.captured}")
 
         # its graph, put back to fit's first state, against eager capturable
         # steps from the same params (fit's first index vectors)
@@ -937,7 +959,7 @@ def training_phase(torch, dev, card: str, reset_counts, counts) -> dict:
             failures.append("torch.profiler saw no device operation in a replay of the train step")
         trained = {"arrays": arrays, "fit_kw": fit_kw, "fit_params": params, "fit_history": history,
                    "step_idx": [idx.cpu() for idx in step_idx], "replay_ms": r["replay_ms"],
-                   "eager_ms": r["eager_ms"]}
+                   "eager_ms": r["eager_ms"], "k7_step": k7_step}
         del prog, tp, model_e, opt_e, on_dev, r
         torch.cuda.empty_cache()
 
@@ -1329,6 +1351,76 @@ def scan_phase(torch, dev, card: str, engine, big, chunk_ms: float, reset_counts
     if not ok:
         raise RuntimeError("K2 disagrees with its plain version at the main path's shape")
     return counts9
+
+
+def gru_sequence_phase(torch, dev, card: str, step_launches: dict | None = None) -> list:
+    """Phase 19, kernel K7 (see the module docstring): the three GRUs of
+    the 2018 network at train-32x2000's shape, each layer's forward and
+    backward launch against the plain loops on the card and timed cold,
+    beside the plain loops' time and the bound.  ``step_launches``: phase
+    17's captured train step's K7 launches by direction, which the rows
+    carry as their main-path launches (None when run alone).  Raises on a
+    failed bar; returns the six launches' rows for the kernels line."""
+    from nnnoiseless_tpu_torch.ops import gru_seq as G
+    from nnnoiseless_tpu_torch.training.network import DEFAULT_META, init_train_params
+
+    b, t = GRU_SHAPE
+    model = init_train_params(torch.Generator().manual_seed(19)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rows, failures = [], []
+    for name in ("vad_gru", "noise_gru", "denoise_gru"):
+        m, layer = getattr(DEFAULT_META, name), getattr(model, name)
+        n, code = m.nb_neurons, m.activation
+        with torch.no_grad():
+            x = torch.randn(b, t, m.nb_inputs, generator=gen, device=dev)
+            xw = (x @ layer["wi"] + layer["b"]).contiguous()
+            wr = layer["wr"].detach().contiguous()
+            dh = 0.01 * torch.randn(b, t, n, generator=gen, device=dev)
+            # each direction's launches, each counted from just before its call
+            before = (G.launches, G.backward_launches)
+            h, gates = G.forward_cuda(xw, wr, code)
+            launched = {"forward": (G.launches - before[0], G.backward_launches - before[1])}
+            before = (G.launches, G.backward_launches)
+            dxw = G.backward_cuda(dh, h, gates, wr, code)
+            launched["backward"] = (G.launches - before[0], G.backward_launches - before[1])
+            torch.cuda.synchronize()
+            ph, pg = G.forward_plain(xw, wr, code)
+            pdxw = G.backward_plain(dh, ph, pg, wr, code)
+            h_err = max(float((h - ph).abs().max()), float((gates - pg).abs().max()))
+            g_abs = float((dxw - pdxw).abs().max())
+            g_rel = g_abs / float(pdxw.abs().max())
+            fwd_ms = cold_ms(torch, lambda a, w: G.forward_cuda(a, w, code), (xw, wr), GRU_REPS)
+            bwd_ms = cold_ms(torch, lambda d, hh, g, w: G.backward_cuda(d, hh, g, w, code), (dh, h, gates, wr),
+                             GRU_REPS)
+            plain_fwd = cuda_ms(torch, lambda: G.forward_plain(xw, wr, code))
+            plain_bwd = cuda_ms(torch, lambda: G.backward_plain(dh, h, gates, wr, code))
+        macs = 3 * n * n * b * t  # the recurrent products, either way
+        for way, ms, plain_ms, abs_err, rel_err, n_bytes in (
+            ("forward", fwd_ms, plain_fwd, h_err, None, 4 * (7 * n * b * t + 3 * n * n)),
+            ("backward", bwd_ms, plain_bwd, g_abs, g_rel, 4 * (8 * n * b * t + 3 * n * n)),
+        ):
+            b_ms, b_by = bound(n_bytes, 2 * macs)
+            # launches: the captured train step's of this direction (its three
+            # layers, one each); here: this phase's (K7, K7 backward) deltas
+            rows.append({"name": f"K7 {way} {name}", "route": "cuda",
+                         "source": "nnnoiseless_tpu_torch/csrc/gru_seq_kernel.cu", "replaces": None,
+                         "launches": step_launches and step_launches[way], "launches_here": launched[way],
+                         "max_abs_err": abs_err, "max_rel_err": rel_err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                         "latency_bound": f"{t} frames x 2 dependent mat-vecs of {n}"})
+            err = f"max abs {abs_err:.3g}" + ("" if rel_err is None else f", over the largest {rel_err:.3g}")
+            print(f"[19] K7 {way} {name} (n={n}, B={b}, T={t}): {ms:.3f} ms cold ({ms / t * 1e3:.3f} us a frame), "
+                  f"plain loop {plain_ms:.1f} ms; roofline bound {b_ms:.4f} ms by {b_by}, bound by latency: "
+                  f"{t} x 2 dependent mat-vecs, wr's {12 * n * n} bytes read once; against the plain loop "
+                  f"{err}; launches (K7, K7 backward) {launched[way]}, in the train step "
+                  f"{step_launches and step_launches[way]} ({card})")
+        if launched != {"forward": (1, 0), "backward": (1, 1)}:
+            failures.append(f"{name}: launches (K7, K7 backward) {launched} for one forward and one backward")
+        if not (h_err <= GRU_H_BAR and g_rel <= GRU_GRAD_BAR):
+            failures.append(f"{name}: the kernels miss the plain loops' bars")
+    if failures:
+        raise RuntimeError("phase 19: " + "; ".join(failures))
+    return rows
 
 
 def main() -> int:
@@ -1845,6 +1937,10 @@ def main() -> int:
     at(18)
     parallel_phase(torch, dev, card, engine, big, trained, reset_counts, counts)
 
+    # ---- 19. the trainer's GRU sequence kernels -----------------------------------------------
+    at(19)
+    k7_rows = gru_sequence_phase(torch, dev, card, trained["k7_step"])
+
     band_nnz = int((BAND_CORR_MATRIX != 0).sum())
     bounds = kernel_bounds(b6, t6, b6 * t6, 2 * b6 * t6, b6 * t6, band_nnz)
 
@@ -1876,6 +1972,8 @@ def main() -> int:
         *({**entry(name, f"{name}_probe", "fft960_kernel.cu", None, counts6[2], e, k_ms, p_ms, lib_ms),
            "probe_of": k2_line}
           for name, (e, k_ms, p_ms, lib_ms, _) in probe.items()),
+        # the trainer's recurrence; it replaces no TPU kernel (a lax.scan there)
+        *k7_rows,
     ]
     for k in kernels:
         print(f"[15] {k['name']}: {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']} "

@@ -57,6 +57,10 @@ _SIGNATURES = {
     # FFT table, rows in, rows out, rows, stream
     "nnt_rfft960": (P, P, P, I, P),
     "nnt_irfft960": (P, P, P, I, P),
+    # xw, wr; out: h, gates; batch, t_count, n, activation code, stream
+    "nnt_gru_seq_fwd": (P, P, P, P, I, I, I, I, P),
+    # dh, h, gates, wr; out: dxw; batch, t_count, n, activation code, stream
+    "nnt_gru_seq_bwd": (P, P, P, P, P, I, I, I, I, P),
 }
 
 last_build_seconds = 0.0

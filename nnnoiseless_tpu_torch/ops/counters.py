@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from . import fft, frame_kernel, pitch_kernel, rnn_kernel, window
+from . import fft, frame_kernel, gru_seq, pitch_kernel, rnn_kernel, window
 
 # The kernel wrappers' launch counters, by the names the tools print.
 COUNTERS = {
@@ -12,6 +12,8 @@ COUNTERS = {
     "K4": (frame_kernel, "cand_launches"),
     "K5": (rnn_kernel, "launches"),
     "K6": (window, "launches"),
+    "K7": (gru_seq, "launches"),  # forward and backward
+    "K7 backward": (gru_seq, "backward_launches"),
     "probe": (fft, "launches"),
 }
 

@@ -9,10 +9,16 @@ Topology (all GRUs ``reset_after=False``, recurrent activation sigmoid)::
 The counterpart of ``nnnoiseless_tpu/training/network.py``.  Differences
 from the inference path (ops/rnn.py): float32 weights with true
 tanh/sigmoid/relu (training wants smooth gradients; the 201-entry tansig
-table is an inference-time artifact), and a loop over the time axis of
-whole sequences.  The weights keep the serialized layout, ``(in, out)`` for
-``x @ w`` with the update/reset/candidate gates at column offsets 0/n/2n,
-so quantization gives a loadable ``.rnn``.
+table is an inference-time artifact), and whole sequences at once.  The
+weights keep the serialized layout, ``(in, out)`` for ``x @ w`` with the
+update/reset/candidate gates at column offsets 0/n/2n, so quantization
+gives a loadable ``.rnn``.
+
+The layers run one after another over all frames, not frame by frame: no
+layer reads a later frame of another, so each dense layer and each GRU's
+input product is one product over all (B, T) rows, and only a GRU's
+recurrence walks the frames (``ops/gru_seq.py``: kernel K7 on a card, the
+plain loop on the CPU).
 
 The cell is written out rather than taken from ``torch.nn.GRU``/cuDNN:
 those apply the reset gate after the recurrent product,
@@ -41,6 +47,7 @@ from ..model import (
     RnnModel,
     quantize_weights,
 )
+from ..ops.gru_seq import activation, gru_sequence
 from .losses import l2_regularization, total_loss
 
 DEFAULT_META = ModelMeta(
@@ -126,49 +133,26 @@ def numpy_params(model: TrainableModel) -> dict:
     }
 
 
-def _act(x, activation: int):
-    if activation == TANH:
-        return torch.tanh(x)
-    if activation == SIGMOID:
-        return torch.sigmoid(x)
-    if activation == RELU:
-        return torch.relu(x)
-    raise ValueError(activation)
-
-
 def _dense(layer, m: LayerMeta, x):
-    return _act(x @ layer["w"] + layer["b"], m.activation)
+    return activation(x @ layer["w"] + layer["b"], m.activation)
 
 
-def _gru_cell(layer, m: LayerMeta, h, x):
-    """Keras reset_after=False GRU cell (float)."""
-    n = m.nb_neurons
-    xw = x @ layer["wi"] + layer["b"]
-    hzr = h @ layer["wr"][:, : 2 * n]
-    z = torch.sigmoid(xw[:, :n] + hzr[:, :n])
-    r = torch.sigmoid(xw[:, n : 2 * n] + hzr[:, n:])
-    hh = _act(xw[:, 2 * n :] + (r * h) @ layer["wr"][:, 2 * n :], m.activation)
-    return z * h + (1.0 - z) * hh
+def _gru(layer, m: LayerMeta, x):
+    """A Keras reset_after=False GRU over whole sequences: x (B, T, in) ->
+    states (B, T, n) from a zero state."""
+    return gru_sequence(x @ layer["wi"] + layer["b"], layer["wr"], m.activation)
 
 
 def sequence_forward(model: TrainableModel, features: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward a batch of sequences: features (B, T, 42) -> (gains (B, T, 22),
-    vad (B, T, 1)), a loop over time with the batch inside each step."""
+    vad (B, T, 1)), one layer at a time over all frames."""
     meta = model.meta
-    b, t, _ = features.shape
-    h_vad = features.new_zeros((b, meta.vad_gru.nb_neurons))
-    h_noise = features.new_zeros((b, meta.noise_gru.nb_neurons))
-    h_den = features.new_zeros((b, meta.denoise_gru.nb_neurons))
-    gains, vads = [], []
-    for i in range(t):
-        f = features[:, i]
-        d = _dense(model.input_dense, meta.input_dense, f)
-        h_vad = _gru_cell(model.vad_gru, meta.vad_gru, h_vad, d)
-        vads.append(_dense(model.vad_output, meta.vad_output, h_vad))
-        h_noise = _gru_cell(model.noise_gru, meta.noise_gru, h_noise, torch.cat([d, h_vad, f], -1))
-        h_den = _gru_cell(model.denoise_gru, meta.denoise_gru, h_den, torch.cat([h_vad, h_noise, f], -1))
-        gains.append(_dense(model.denoise_output, meta.denoise_output, h_den))
-    return torch.stack(gains, 1), torch.stack(vads, 1)
+    d = _dense(model.input_dense, meta.input_dense, features)
+    h_vad = _gru(model.vad_gru, meta.vad_gru, d)
+    vad = _dense(model.vad_output, meta.vad_output, h_vad)
+    h_noise = _gru(model.noise_gru, meta.noise_gru, torch.cat([d, h_vad, features], -1))
+    h_den = _gru(model.denoise_gru, meta.denoise_gru, torch.cat([h_vad, h_noise, features], -1))
+    return _dense(model.denoise_output, meta.denoise_output, h_den), vad
 
 
 def export_model(params, meta: ModelMeta | None = None) -> RnnModel:

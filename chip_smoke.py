@@ -148,8 +148,9 @@ JSON object with each kernel's launches, error, times and bound, and
 Bounds: the least time the card could take for a kernel's work on this
 run's shapes, the larger of its bytes (each input read once, each output
 written once) over 3.35 TB/s and its operations over the FP32 peak of
-67 TFLOP/s (H100 SXM, NVIDIA's data sheet, at a 700 W limit).  The counts
-are in kernel_bounds().  A kernel timed below its bound fails the run:
+67 TFLOP/s (H100 SXM, NVIDIA's data sheet, at a 700 W limit).  The peaks,
+the FFT's flops and the bound are perf_bench/counts.py's; the counts are in
+kernel_bounds().  A kernel timed below its bound fails the run:
 its data came from the L2, not from memory.
 """
 
@@ -164,6 +165,8 @@ import tempfile
 import time
 
 import numpy as np
+
+from perf_bench.counts import PEAK_BYTES, PEAK_FLOPS, bound_s, fft960_flops
 
 ROOT = pathlib.Path(__file__).resolve().parent
 DATA = ROOT / "tests" / "data"
@@ -203,8 +206,6 @@ BEFORE = {("K3", 1): "direct-sum kernel 0.0192-0.0321 ms a call",
 # of K5's 32-stream tile, 1024 and 64 run its one-stream tile
 MID_BATCHES = (1061, 1024, 64)
 RNN_WEIGHT_BYTES = 87503  # the standard model's int8 weights (ops/rnn_kernel.py::pack_weights)
-PEAK_BYTES = 3.35e12  # B/s, H100 SXM HBM3
-PEAK_FLOPS = 67e12  # FP32 on the CUDA cores
 PHASE9_MAX = 64  # K2 against its plain version at full size: max units a stream ...
 PHASE9_OUTLIERS = 0.001  # ... on all but this share of the streams
 NEAR_TIE = 1e-4  # pitch decisions: a float64 margin under which f32 rounding may flip the pick
@@ -237,24 +238,6 @@ PROFILED_CALLS = 20  # phase 8: process_frame calls under torch.profiler
 GRU_SHAPE = (32, 2000)
 GRU_REPS = 3
 GRU_H_BAR, GRU_GRAD_BAR = 2e-5, 1e-4
-
-
-def fft960_flops() -> int:
-    """Flops (an FMA counts two) a windowed 960-point real FFT needs, forward
-    or inverse, in the decomposition of csrc/fft960.cuh, with no
-    multiplication by a twiddle of 1, -1, i or -i and each butterfly's sum
-    and difference counted once: 960 window products (wnorm and the
-    inverse's 1/2 folded into the window), 32 15-point DFTs as 3 x 5 prime
-    factors, the non-trivial W480^(n2 k1), 15 radix-2 32-point DFTs, and the
-    split, one complex product and 8 adds for each pair (k, 480 - k)."""
-    dft3 = 2 + 4 + 4 + 2 + 4  # sum, middle (FMA), difference x sin, y0, y1/y2
-    dft5 = 8 + 16 + 12 + 4 + 8  # 4 sums, 2 cosine rows, 2 sine rows, y0, y1..y4
-    pfa15 = 5 * dft3 + 3 * dft5
-    twiddles = sum(1 for n2 in range(32) for k1 in range(15) if n2 * k1 % 120)
-    stage_twiddles = sum((1 << s) * sum(1 for j in range(16 >> s) if 4 * j % (32 >> s)) for s in range(5))
-    radix32 = 5 * 16 * 4 + 6 * stage_twiddles
-    split = 239 * (4 + 6 + 4) + 2  # bins 0 and 480 from Z[0]; bin 240 is a conjugate
-    return 960 + 32 * pfa15 + 6 * twiddles + 15 * radix32 + split
 
 
 def card_line() -> str:
@@ -337,9 +320,9 @@ def test_frames(batch: int, t_count: int, seed: int) -> np.ndarray:
 
 
 def bound(n_bytes: float, flops: float) -> tuple[float, str]:
-    """(ms, "bytes" or "operations"): the larger of the two times."""
-    by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    """(ms, "bytes" or "operations"): ``counts.bound_s`` and which of its
+    two times it is."""
+    return bound_s(n_bytes, flops) * 1e3, "bytes" if n_bytes / PEAK_BYTES >= flops / PEAK_FLOPS else "operations"
 
 
 def kernel_bounds(b: int, t: int, r4: int, r_fwd: int, r_inv: int, band_nnz: int) -> dict:
@@ -751,9 +734,9 @@ def training_phase(torch, dev, card: str, reset_counts, counts) -> dict:
     from nnnoiseless_tpu_torch.training import data as td
     from nnnoiseless_tpu_torch.training.losses import l2_regularization, total_loss
     from nnnoiseless_tpu_torch.training.network import (
-        WEIGHT_CLIP, export_model, init_train_params, sequence_forward,
+        WEIGHT_CLIP, compute_sample_weights, export_model, init_train_params, make_optimizer, sequence_forward,
     )
-    from nnnoiseless_tpu_torch.training.train import compute_sample_weights, make_optimizer, train_step_indexed
+    from nnnoiseless_tpu_torch.training.train import train_step_indexed
 
     ts = _load_synth()
     failures = []  # every bar is read before the phase fails, so that one run shows them all
@@ -1046,8 +1029,8 @@ def parallel_phase(torch, dev, card: str, engine, big, trained: dict, reset_coun
     from nnnoiseless_tpu_torch.ops.biquad import biquad_filter_frames
     from nnnoiseless_tpu_torch.parallel import make_mesh, shard_batch, sharded_process_frames
     from nnnoiseless_tpu_torch.tables import BIQUAD_HP_A, BIQUAD_HP_B
-    from nnnoiseless_tpu_torch.training.network import init_train_params
-    from nnnoiseless_tpu_torch.training.train import compute_sample_weights, make_optimizer, train_step_dp
+    from nnnoiseless_tpu_torch.training.network import compute_sample_weights, init_train_params, make_optimizer
+    from nnnoiseless_tpu_torch.training.train import train_step_dp
 
     b, t = REAL_SHAPE
     chunk = lambda c: big[:, c * t : (c + 1) * t]
@@ -1431,8 +1414,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     import nnnoiseless_tpu_torch as nt
-    from nnnoiseless_tpu_torch import _build, programs
+    from nnnoiseless_tpu_torch import _build
     from nnnoiseless_tpu_torch.chunk import decimate, precompute_chunk
+    from nnnoiseless_tpu_torch.ops.counters import COUNTERS, launch_counts
     from nnnoiseless_tpu_torch.ops import fft
     from nnnoiseless_tpu_torch.ops import frame_kernel as fk
     from nnnoiseless_tpu_torch.ops import pitch_kernel as pk
@@ -1450,10 +1434,10 @@ def main() -> int:
     from nnnoiseless_tpu_torch.tables import BAND_CORR_MATRIX, BIQUAD_HP_A, BIQUAD_HP_B, VORBIS_WINDOW, WNORM
 
     def reset_counts():
-        for mod, attr in programs.COUNTERS.values():
+        for mod, attr in COUNTERS.values():
             setattr(mod, attr, 0)
 
-    counts = programs.launch_counts
+    counts = launch_counts
 
     dev = torch.device(DEVICE)
     card = card_line()

@@ -236,13 +236,6 @@ def frame_step(rnn: Rnn, carry: DenoiseCarry, frame: torch.Tensor, weights: tupl
     return _denoise_tail(rnn, carry, feat_state, an, weights)
 
 
-def frame_step_prefiltered(rnn: Rnn, carry: DenoiseCarry, filtered: torch.Tensor,
-                           hp_mem: torch.Tensor, weights: tuple | None = None):
-    """:func:`frame_step` for already HP-filtered frames."""
-    feat_state, an = analyze_frame_prefiltered(carry.feat, filtered, hp_mem)
-    return _denoise_tail(rnn, carry, feat_state, an, weights)
-
-
 def analyze_frame_hoisted(state: FeatureState, pre: FramePre) -> tuple[FeatureState, Analysis]:
     """The carry-dependent remainder of the analysis, given one frame's
     precompute (a :class:`FramePre` of (B, ...) slices with the lag-0

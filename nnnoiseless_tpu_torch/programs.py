@@ -58,7 +58,7 @@ import torch
 
 from . import tracing
 from .constants import FRAME_SIZE, FREQ_SIZE, NB_BANDS, NB_FEATURES
-from .ops.counters import COUNTERS, add_counts, launch_counts  # noqa: F401  (the tools read both here)
+from .ops.counters import add_counts, launch_counts
 from .ops.pitch import N_CAND
 from .pipeline import (
     DenoiseCarry,
@@ -275,6 +275,17 @@ def _pre_slot(batch: int, device) -> FramePre:
                     ex=z(NB_BANDS), silence=z(dtype=torch.bool), ceps=z(NB_BANDS))
 
 
+def _feed(program: StepProgram, slot: FramePre, pre: FramePre, outputs: list) -> None:
+    """Each frame t of ``pre`` (time-major (T, B, ...)): copy it into
+    ``slot``, run ``program``, then copy each (dst, src) of ``outputs``."""
+    for t in range(pre.filtered.shape[0]):
+        for s, field in zip(slot, pre, strict=True):
+            s.copy_(field[t])
+        program()
+        for dst, src in outputs:
+            dst[:, t].copy_(src)
+
+
 class ScanProgram:
     """``pipeline.frame_step_hoisted`` at ``batch`` streams on a static
     carry, fed one frame of a chunk's precompute at a time: the scan
@@ -307,17 +318,11 @@ class ScanProgram:
         new = lambda *shape, dtype=torch.float32: torch.empty(
             (b, t_count) + shape, dtype=dtype, device=self.out.device)
         out, vad = new(FRAME_SIZE), new()
+        outputs = [(out, self.out), (vad, self.vad)]
         if return_trace:
             periods, gains = new(dtype=torch.int32), new()
-        for t in range(t_count):
-            for slot, field in zip(self.pre, pre, strict=True):
-                slot.copy_(field[t])
-            self.program()
-            out[:, t].copy_(self.out)
-            vad[:, t].copy_(self.vad)
-            if return_trace:
-                periods[:, t].copy_(self.carry.feat.pitch_period)
-                gains[:, t].copy_(self.carry.feat.pitch_gain)
+            outputs += [(periods, self.carry.feat.pitch_period), (gains, self.carry.feat.pitch_gain)]
+        _feed(self.program, self.pre, pre, outputs)
         result = (snapshot(self.carry), out, vad)
         return (*result, (periods, gains)) if return_trace else result
 
@@ -350,11 +355,7 @@ class FeatureProgram:
         assign(self.state, state)
         b, t_count = self.features.shape[0], pre.filtered.shape[0]
         feats = torch.empty((b, t_count, NB_FEATURES), dtype=torch.float32, device=self.features.device)
-        for t in range(t_count):
-            for slot, field in zip(self.pre, pre, strict=True):
-                slot.copy_(field[t])
-            self.program()
-            feats[:, t].copy_(self.features)
+        _feed(self.program, self.pre, pre, [(feats, self.features)])
         return snapshot(self.state), feats
 
 
@@ -374,7 +375,7 @@ class TrainProgram:
 
     The program's state is the model's parameters, every tensor of the
     optimizer's state and each group's learning rate, all of which must
-    exist before the first call (``training.train.make_optimizer`` creates
+    exist before the first call (``training.network.make_optimizer`` creates
     Adam's state, zero, and keeps the learning rate in a 0-d tensor): the
     warm-up step puts them back as it found them, so the first replay is
     the first update.  The gradients are left to the capture: the step sets

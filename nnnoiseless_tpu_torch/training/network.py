@@ -30,12 +30,14 @@ weights would not export.
 from __future__ import annotations
 
 import math
+import pathlib
 
 import numpy as np
 import torch
 from torch import nn
 
 from .. import tracing
+from ..constants import NB_BANDS, NB_FEATURES
 from ..model import (
     GRU_LAYERS,
     LAYERS,
@@ -49,6 +51,7 @@ from ..model import (
 )
 from ..ops.gru_seq import activation, gru_sequence
 from .losses import l2_regularization, total_loss
+from .recipe import Recipe, adam_for_device
 
 DEFAULT_META = ModelMeta(
     input_dense=LayerMeta(42, 24, TANH),
@@ -170,3 +173,88 @@ def export_model(params, meta: ModelMeta | None = None) -> RnnModel:
         for name, layer in params.items()
     }
     return RnnModel(q, meta or DEFAULT_META)
+
+
+def make_optimizer(model: TrainableModel, learning_rate: float = 1e-3,
+                   cosine_steps: int | None = None) -> torch.optim.Adam:
+    """Adam with optax's ``adam`` defaults (b1 0.9, b2 0.999, eps 1e-8), set
+    up for the device of ``model``'s parameters (move the model first).
+
+    On a card it is ``capturable``: its update count and bias corrections
+    stay on the device, so a step can be captured in a CUDA graph
+    (``programs.TrainProgram``), and the eager steps run the same
+    arithmetic.  On the CPU it is not (capturable Adam refuses CPU
+    tensors).  Adam's state (``step``, ``exp_avg``, ``exp_avg_sq``) is
+    created here, zero, so that a captured step finds it in place.
+
+    The learning rate is a 0-d float32 tensor on that device,
+    ``opt.param_groups[0]["lr"]``, which every step reads (optax's
+    ``inject_hyperparams``).  To change it mid-run, write the tensor in
+    place: ``opt.param_groups[0]["lr"].fill_(new_lr)``.  Assigning a new
+    float or tensor to the group instead would not reach a step already
+    captured.  With ``cosine_steps`` the step itself sets it before each
+    update to ``optax.cosine_decay_schedule(learning_rate,
+    cosine_steps)`` (alpha 0) at Adam's own update count, computed on the
+    device, so the first update uses the schedule at 0, as optax's does.
+    """
+    opt = torch.optim.Adam(
+        [{"params": list(model.parameters()), "base_lr": learning_rate, "cosine_steps": cosine_steps}],
+        lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+    )
+    return adam_for_device(opt, None if cosine_steps is None else cosine_lr)
+
+
+def cosine_lr(group: dict, count: torch.Tensor) -> torch.Tensor:
+    """optax's cosine decay of ``base_lr`` to 0 over ``cosine_steps`` at the
+    update count ``count``."""
+    steps = group["cosine_steps"]
+    return group["base_lr"] * (0.5 * (1.0 + torch.cos(math.pi * count.clamp(max=steps) / steps)))
+
+
+def compute_sample_weights(gains: np.ndarray) -> np.ndarray:
+    """Tertile reweighting by per-sequence mean gain (rnn_train.py:108-118)."""
+    y = gains.reshape(gains.shape[0], -1)
+    masked = np.ma.masked_equal(y, -1.0)
+    means = masked.mean(axis=1).filled(np.nan)
+    hi = means > 2 / 3
+    lo = means < 1 / 3
+    med = ~hi & ~lo & ~np.isnan(means)
+    total = np.sum(~np.isnan(means))
+    w = np.zeros(len(means))
+    for m in (hi, med, lo):
+        n = max(m.sum(), 1)
+        w += m * (total / n)
+    return (w / 3.0).astype(np.float32)
+
+
+def load_h5(path: str, window: int = 2000):
+    """Load the 87-column HDF5 produced by the data generator.
+
+    Layout per row: 42 features | 22 gains | 22 noise levels | 1 vad
+    (reference src/training.rs:90-94, 155-159).  Needs ``h5py``.
+    """
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        data = np.asarray(f["data"], np.float32)
+    n_seq = len(data) // window
+    data = data[: n_seq * window]
+    features = data[:, :NB_FEATURES].reshape(n_seq, window, NB_FEATURES)
+    gains = data[:, NB_FEATURES : NB_FEATURES + NB_BANDS].reshape(n_seq, window, NB_BANDS)
+    vad = data[:, NB_FEATURES + 2 * NB_BANDS :].reshape(n_seq, window, 1)
+    return features, gains, vad
+
+
+# train/rnn_train.py's recipe: Adam (constant or cosine), the tertile sample
+# weights, the weight clip (``post_step``), batch 32, the int8 export
+RECIPE = Recipe(
+    meta=DEFAULT_META,
+    init=init_train_params,
+    optimizer=lambda model, lr, cosine_steps, lr_decay: make_optimizer(model, lr, cosine_steps),
+    sample_weights=lambda gains, device: torch.as_tensor(compute_sample_weights(gains), device=device),
+    load=load_h5,
+    numpy_params=numpy_params,
+    write=lambda params, path: pathlib.Path(path).write_bytes(export_model(params).to_bytes()),
+    batch_size=32,
+    out="weights.rnn",
+)

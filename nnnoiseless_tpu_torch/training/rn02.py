@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import tracing
+from .recipe import Recipe, adam_for_device
 
 
 @dataclass(frozen=True)
@@ -103,7 +104,8 @@ class Rn02Model(nn.Module):
         (B,T,1)}; its recipe weighs no samples."""
         if sample_weight is not None:
             raise ValueError("RNNoise 0.2's recipe takes no sample weights")
-        return batch_loss(self, batch)
+        gains_pred, vad_pred = forward(self, batch["features"])
+        return loss(gains_pred, vad_pred, batch["gains"], batch["vad"])
 
     def post_step(self) -> None:
         """Nothing: the 0.2 recipe clips no weights."""
@@ -194,12 +196,6 @@ def loss(gains_pred: torch.Tensor, vad_pred: torch.Tensor, gains: torch.Tensor, 
     return gain_loss + VAD_WEIGHT * vad_loss
 
 
-def batch_loss(model: Rn02Model, batch: dict) -> torch.Tensor:
-    """The forward and the loss of a batch {features, gains, vad}."""
-    gains_pred, vad_pred = forward(model, batch["features"])
-    return loss(gains_pred, vad_pred, batch["gains"], batch["vad"])
-
-
 def numpy_params(model: Rn02Model) -> dict:
     """The state dict as numpy arrays, ``{"conv1.weight": array, ...}``."""
     return {k: v.detach().cpu().numpy().copy() for k, v in model.state_dict().items()}
@@ -214,3 +210,46 @@ def load_f32(path, window: int = 2000, meta: Rn02Meta = RN02_META):
     n_seq = len(data) // (window * dim)
     data = data[: n_seq * window * dim].reshape(n_seq, window, dim)
     return data[..., : meta.input_dim], data[..., meta.input_dim : -1], data[..., -1:]
+
+
+def make_adamw(model: Rn02Model, learning_rate: float = 1e-3, lr_decay: float = LR_DECAY) -> torch.optim.AdamW:
+    """RNNoise 0.2's optimizer (train_rnnoise.py): AdamW, betas (0.8, 0.98),
+    eps 1e-8, torch's default weight decay 0.01, the learning rate
+    ``learning_rate / (1 + lr_decay * n)`` after n updates (its
+    ``LambdaLR``), set by the step itself on the device from AdamW's update
+    count.  Device, state and learning-rate tensor as
+    ``network.make_optimizer``'s."""
+    opt = torch.optim.AdamW(
+        # "cosine_steps": None only for the checkpoint format, whose groups
+        # all carry it (train.restore_checkpoint compares it)
+        [{"params": list(model.parameters()), "base_lr": learning_rate, "cosine_steps": None,
+          "lr_decay": lr_decay}],
+        lr=learning_rate, betas=BETAS, eps=ADAM_EPS, weight_decay=WEIGHT_DECAY,
+    )
+    return adam_for_device(opt, decayed_lr)
+
+
+def decayed_lr(group: dict, count: torch.Tensor) -> torch.Tensor:
+    """``base_lr / (1 + lr_decay * count)`` at the update count ``count``."""
+    return group["base_lr"] / (1.0 + group["lr_decay"] * count)
+
+
+def _one_device(mesh, lr_schedule) -> None:
+    if mesh is not None or lr_schedule is not None:
+        raise ValueError("rnnoise-0.2 trains on one device by its own schedule: no mesh, no lr_schedule")
+
+
+# train_rnnoise.py's recipe: AdamW under its decay, no sample weights, no
+# clip, batch 128, the state dict; one device, no other schedule
+RECIPE = Recipe(
+    meta=RN02_META,
+    init=init_params,
+    optimizer=lambda model, lr, cosine_steps, lr_decay: make_adamw(model, lr, lr_decay),
+    sample_weights=lambda gains, device: None,
+    load=load_f32,
+    numpy_params=numpy_params,
+    write=lambda params, path: torch.save({k: torch.from_numpy(v) for k, v in params.items()}, path),
+    batch_size=BATCH_SIZE,
+    out="weights.pth",
+    check=_one_device,
+)

@@ -8,7 +8,9 @@ topology, RNNoise 0.2's network (:mod:`.rn02`), trains by its own recipe
 (xiph/rnnoise v0.2 ``torch/rnnoise/train_rnnoise.py``: its loss, AdamW
 with the learning rate ``lr / (1 + d step)``, batch 128, no sample
 weights, no l2, no clip) on one device:
-``fit(..., topology="rnnoise-0.2")``.  The dataset goes
+``fit(..., topology="rnnoise-0.2")``.  What differs between topologies
+is each one's :class:`recipe.Recipe`, in its own module, named in
+:data:`TOPOLOGIES`; nothing here asks which topology it trains.  The dataset goes
 to the device once; each step gathers its batch there from a (B,) index
 vector (:func:`train_step_indexed`).  Over a mesh every rank holds the
 whole dataset and takes its slice of each step's index vector, and one
@@ -28,7 +30,7 @@ Usage::
 from __future__ import annotations
 
 import argparse
-import math
+import dataclasses
 import os
 import pathlib
 from typing import Optional
@@ -38,88 +40,26 @@ import torch
 import torch.distributed as dist
 
 from .. import tracing
-from ..constants import NB_BANDS, NB_FEATURES
 from ..denoise import check_device
-from ..model import ModelMeta
 from ..programs import TrainProgram
+from . import network, rn02
 from .losses import l2_regularization, total_loss
-from . import rn02
-from .network import (
-    DEFAULT_META,
-    TrainableModel,
-    clip_params,
-    export_model,
-    init_train_params,
-    numpy_params,
-    sequence_forward,
-)
+from .network import sequence_forward
+from .recipe import Recipe, adam_for_device
+
+make_optimizer, make_adamw = network.make_optimizer, rn02.make_adamw  # perf_bench's drivers build them here
+TOPOLOGIES = {"rnnoise-2018": network.RECIPE, "rnnoise-0.2": rn02.RECIPE}  # name: recipe at published widths
 
 
-TOPOLOGIES = {"rnnoise-2018": DEFAULT_META, "rnnoise-0.2": rn02.RN02_META}  # name: published widths
-
-
-def make_optimizer(model: TrainableModel, learning_rate: float = 1e-3,
-                   cosine_steps: Optional[int] = None) -> torch.optim.Adam:
-    """Adam with optax's ``adam`` defaults (b1 0.9, b2 0.999, eps 1e-8), set
-    up for the device of ``model``'s parameters (move the model first).
-
-    On a card it is ``capturable``: its update count and bias corrections
-    stay on the device, so a step can be captured in a CUDA graph
-    (``programs.TrainProgram``), and the eager steps run the same
-    arithmetic.  On the CPU it is not (capturable Adam refuses CPU
-    tensors).  Adam's state (``step``, ``exp_avg``, ``exp_avg_sq``) is
-    created here, zero, so that a captured step finds it in place.
-
-    The learning rate is a 0-d float32 tensor on that device,
-    ``opt.param_groups[0]["lr"]``, which every step reads (optax's
-    ``inject_hyperparams``).  To change it mid-run, write the tensor in
-    place: ``opt.param_groups[0]["lr"].fill_(new_lr)``.  Assigning a new
-    float or tensor to the group instead would not reach a step already
-    captured.  With ``cosine_steps`` the step itself sets it before each
-    update to ``optax.cosine_decay_schedule(learning_rate,
-    cosine_steps)`` (alpha 0) at Adam's own update count, computed on the
-    device, so the first update uses the schedule at 0, as optax's does.
-    """
-    opt = torch.optim.Adam(
-        [{"params": list(model.parameters()), "base_lr": learning_rate, "cosine_steps": cosine_steps}],
-        lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
-    )
-    _adam_for_device(opt)
-    return opt
-
-
-def make_adamw(model: rn02.Rn02Model, learning_rate: float = 1e-3,
-               lr_decay: float = rn02.LR_DECAY) -> torch.optim.AdamW:
-    """RNNoise 0.2's optimizer (train_rnnoise.py): AdamW, betas (0.8, 0.98),
-    eps 1e-8, torch's default weight decay 0.01, the learning rate
-    ``learning_rate / (1 + lr_decay * n)`` after n updates (its
-    ``LambdaLR``), set by the step itself on the device from AdamW's update
-    count.  Device, state and learning-rate tensor as
-    :func:`make_optimizer`'s."""
-    opt = torch.optim.AdamW(
-        [{"params": list(model.parameters()), "base_lr": learning_rate, "cosine_steps": None,
-          "lr_decay": lr_decay}],
-        lr=learning_rate, betas=rn02.BETAS, eps=rn02.ADAM_EPS, weight_decay=rn02.WEIGHT_DECAY,
-    )
-    _adam_for_device(opt)
-    return opt
-
-
-def _adam_for_device(opt: torch.optim.Adam) -> None:
-    """Adam's settings and state for its parameters' device: capturable on a
-    card only, the learning rate a 0-d float32 tensor there, each
-    parameter's state present (zero before the first update) with its
-    update count a 0-d float32 tensor on that device."""
-    for group in opt.param_groups:
-        dev = group["params"][0].device
-        group["capturable"] = dev.type == "cuda"
-        group["lr"] = torch.tensor(float(group["lr"]), dtype=torch.float32, device=dev)
-        for p in group["params"]:
-            state = opt.state[p]
-            state["step"] = torch.tensor(float(state.get("step", 0.0)), dtype=torch.float32, device=dev)
-            for key in ("exp_avg", "exp_avg_sq"):
-                if key not in state:
-                    state[key] = torch.zeros_like(p, memory_format=torch.preserve_format)
+def recipe_of(topology) -> Recipe:
+    """The recipe of a name of :data:`TOPOLOGIES`, or of widths: the recipe
+    whose published widths are of their type, at these widths."""
+    if not isinstance(topology, str):
+        by_type = {type(recipe.meta): recipe for recipe in TOPOLOGIES.values()}
+        return dataclasses.replace(by_type[type(topology)], meta=topology)
+    if topology not in TOPOLOGIES:
+        raise ValueError(f"unknown topology {topology!r}; one of {', '.join(TOPOLOGIES)}")
+    return TOPOLOGIES[topology]
 
 
 def updates_taken(opt: torch.optim.Adam) -> int:
@@ -130,21 +70,15 @@ def updates_taken(opt: torch.optim.Adam) -> int:
 
 
 def _apply_schedule(opt: torch.optim.Adam) -> None:
-    """Set each cosine or decaying group's learning rate in place from the
-    update count, on the device (no host read, so a captured step
-    recomputes it at every replay)."""
-    for group in opt.param_groups:
-        steps = group["cosine_steps"]
-        if steps is not None:
-            count = opt.state[group["params"][0]]["step"].clamp(max=steps)
-            group["lr"].copy_(group["base_lr"] * (0.5 * (1.0 + torch.cos(math.pi * count / steps))))
-        decay = group.get("lr_decay")
-        if decay is not None:
-            count = opt.state[group["params"][0]]["step"]
-            group["lr"].copy_(group["base_lr"] / (1.0 + decay * count))
+    """Set each group's learning rate in place to ``opt.schedule`` (its
+    factory's) of the update count, on the device (no host read, so a
+    captured step recomputes it at every replay); a constant rate is left."""
+    if opt.schedule is not None:
+        for group in opt.param_groups:
+            group["lr"].copy_(opt.schedule(group, opt.state[group["params"][0]]["step"]))
 
 
-def train_step(model: TrainableModel | rn02.Rn02Model, opt: torch.optim.Optimizer, batch: dict,
+def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer, batch: dict,
                sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One step on a batch {features, gains, vad}: the model's loss
     (``batch_loss``: for a :class:`TrainableModel` total_loss +
@@ -164,7 +98,7 @@ def train_step(model: TrainableModel | rn02.Rn02Model, opt: torch.optim.Optimize
     return loss.detach()
 
 
-def train_step_indexed(model: TrainableModel | rn02.Rn02Model, opt: torch.optim.Optimizer, data: dict,
+def train_step_indexed(model: torch.nn.Module, opt: torch.optim.Optimizer, data: dict,
                        idx: torch.Tensor, seq_weights: Optional[torch.Tensor]) -> torch.Tensor:
     """One step on rows ``idx`` of a dataset on the device: the batch is
     gathered there, so only the (B,) index vector crosses per step.
@@ -176,7 +110,7 @@ def train_step_indexed(model: TrainableModel | rn02.Rn02Model, opt: torch.optim.
     return train_step(model, opt, batch, sw)
 
 
-def train_step_dp(model: TrainableModel, opt: torch.optim.Adam, data: dict, idx: torch.Tensor,
+def train_step_dp(model: network.TrainableModel, opt: torch.optim.Adam, data: dict, idx: torch.Tensor,
                   seq_weights: torch.Tensor, mesh) -> torch.Tensor:
     """One step of the global batch ``idx`` on this rank of the 1-D
     DeviceMesh ``mesh``: the rank gathers its contiguous slice of ``idx``
@@ -187,9 +121,11 @@ def train_step_dp(model: TrainableModel, opt: torch.optim.Adam, data: dict, idx:
     is its weighted sum over the global weight total, which every rank
     computes from ``idx`` alone; the l2 term is rank 0's.  One all-reduce
     (SUM) of the flattened gradients and the loss gives each rank the
-    global gradient, then every rank takes the same Adam update and clip.
-    Averaging the ranks' own weighted means, as stock DDP would, is not
-    that gradient when their weight sums differ.  Returns the global loss.
+    global gradient, then every rank takes the same Adam update and
+    ``post_step`` (the clip).  Averaging the ranks' own weighted means, as
+    stock DDP would, is not that gradient when their weight sums differ.
+    Returns the global loss.  The 2018 network's step: RNNoise 0.2's
+    recipe refuses a mesh.
     """
     n, rank = mesh.size(), mesh.get_local_rank()
     b = idx.shape[0]
@@ -211,45 +147,11 @@ def train_step_dp(model: TrainableModel, opt: torch.optim.Adam, data: dict, idx:
         p.grad.copy_(g.view_as(p))
     _apply_schedule(opt)
     opt.step()
-    clip_params(model)
+    model.post_step()
     return flat[-1]
 
 
-def compute_sample_weights(gains: np.ndarray) -> np.ndarray:
-    """Tertile reweighting by per-sequence mean gain (rnn_train.py:108-118)."""
-    y = gains.reshape(gains.shape[0], -1)
-    masked = np.ma.masked_equal(y, -1.0)
-    means = masked.mean(axis=1).filled(np.nan)
-    hi = means > 2 / 3
-    lo = means < 1 / 3
-    med = ~hi & ~lo & ~np.isnan(means)
-    total = np.sum(~np.isnan(means))
-    w = np.zeros(len(means))
-    for m in (hi, med, lo):
-        n = max(m.sum(), 1)
-        w += m * (total / n)
-    return (w / 3.0).astype(np.float32)
-
-
-def load_h5(path: str, window: int = 2000):
-    """Load the 87-column HDF5 produced by the data generator.
-
-    Layout per row: 42 features | 22 gains | 22 noise levels | 1 vad
-    (reference src/training.rs:90-94, 155-159).  Needs ``h5py``.
-    """
-    import h5py
-
-    with h5py.File(path, "r") as f:
-        data = np.asarray(f["data"], np.float32)
-    n_seq = len(data) // window
-    data = data[: n_seq * window]
-    features = data[:, :NB_FEATURES].reshape(n_seq, window, NB_FEATURES)
-    gains = data[:, NB_FEATURES : NB_FEATURES + NB_BANDS].reshape(n_seq, window, NB_BANDS)
-    vad = data[:, NB_FEATURES + 2 * NB_BANDS :].reshape(n_seq, window, 1)
-    return features, gains, vad
-
-
-def save_checkpoint(path, model: TrainableModel, opt: torch.optim.Adam, step: int) -> pathlib.Path:
+def save_checkpoint(path, model: torch.nn.Module, opt: torch.optim.Adam, step: int) -> pathlib.Path:
     """Write the full training state (weights, Adam's state and settings,
     the step) with ``torch.save`` to its own ``step_<n:08d>`` file under the
     directory ``path`` (mid-training resume: the reference only saves final
@@ -276,7 +178,7 @@ def latest_checkpoint(path) -> Optional[pathlib.Path]:
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(path, model: TrainableModel, opt: torch.optim.Adam) -> int:
+def restore_checkpoint(path, model: torch.nn.Module, opt: torch.optim.Adam) -> int:
     """Load a checkpoint into ``model`` and ``opt``; returns its step.
     ``path`` is one ``step_<n>`` file or a directory of them written by
     :func:`save_checkpoint` (the newest wins).
@@ -309,7 +211,7 @@ def restore_checkpoint(path, model: TrainableModel, opt: torch.optim.Adam) -> in
         opt.load_state_dict(ckpt["optimizer"])
     except (KeyError, RuntimeError, ValueError) as e:
         raise ValueError(f"checkpoint {p} does not match the current training configuration: {e}") from e
-    _adam_for_device(opt)
+    adam_for_device(opt, opt.schedule)
     return int(ckpt["step"])
 
 
@@ -322,7 +224,7 @@ def fit(
     batch_size: int = 32,
     learning_rate: float = 1e-3,
     seed: int = 0,
-    topology: str | ModelMeta | rn02.Rn02Meta = "rnnoise-2018",
+    topology="rnnoise-2018",
     lr_decay: float = rn02.LR_DECAY,
     log_every: int = 10,
     checkpoint_dir: Optional[str] = None,
@@ -338,12 +240,13 @@ def fit(
     JAX package's layout.
 
     ``topology``: a name of :data:`TOPOLOGIES` at its published widths, or
-    the widths themselves, whose type names the topology: a ``ModelMeta``
-    is the 2018 network of :mod:`.network`, an :class:`rn02.Rn02Meta`
-    RNNoise 0.2's (:mod:`.rn02`: rows of 65 features, 32 gains and 1 VAD;
-    its recipe: :func:`make_adamw` with ``lr_decay``, no sample weights, no
-    clip; returned as its state dict's numpy arrays; one device, no
-    ``lr_schedule``).
+    the widths themselves, whose type names the topology (:func:`recipe_of`):
+    a ``ModelMeta`` is the 2018 network of :mod:`.network`, an
+    :class:`rn02.Rn02Meta` RNNoise 0.2's (:mod:`.rn02`: rows of 65
+    features, 32 gains and 1 VAD; its recipe: :func:`rn02.make_adamw` with
+    ``lr_decay``, no sample weights, no clip; returned as its state dict's
+    numpy arrays; one device, no ``lr_schedule``).  The recipe builds the
+    model, the optimizer and the sample weights and returns the params.
 
     ``lr_schedule``: None (constant) or "cosine" (cosine decay to 0 over
     ``total_steps``, by default the whole run).  ``history`` (if given)
@@ -373,14 +276,8 @@ def fit(
     collective if nothing ran one before, and creates NCCL's communicator.
     """
     device = check_device(device)
-    if isinstance(topology, str):
-        if topology not in TOPOLOGIES:
-            raise ValueError(f"unknown topology {topology!r}; one of {', '.join(TOPOLOGIES)}")
-        topology = TOPOLOGIES[topology]
-    meta = topology
-    is_02 = isinstance(meta, rn02.Rn02Meta)
-    if is_02 and (mesh is not None or lr_schedule is not None):
-        raise ValueError("rnnoise-0.2 trains on one device by its own schedule: no mesh, no lr_schedule")
+    recipe = recipe_of(topology)
+    recipe.check(mesh, lr_schedule)
     rank = 0
     if mesh is not None:
         if mesh.ndim != 1 or mesh.mesh_dim_names != ("dp",):
@@ -398,18 +295,14 @@ def fit(
         cosine_steps = None
     else:
         raise ValueError(f"unknown lr_schedule {lr_schedule!r}")
-    if is_02:
-        model = rn02.init_params(torch.Generator().manual_seed(seed), meta).to(device)
-        opt = make_adamw(model, learning_rate, lr_decay)
-    else:
-        model = init_train_params(torch.Generator().manual_seed(seed), meta).to(device)
-        opt = make_optimizer(model, learning_rate, cosine_steps)
+    model = recipe.init(torch.Generator().manual_seed(seed), recipe.meta).to(device)
+    opt = recipe.optimizer(model, learning_rate, cosine_steps, lr_decay)
     step = 0
     if resume_from:
         step = restore_checkpoint(resume_from, model, opt)
         if rank == 0:
             print(f"resumed from {resume_from} at step {step}")
-    seq_w = None if is_02 else torch.as_tensor(compute_sample_weights(gains), device=device)
+    seq_w = recipe.sample_weights(gains, device)
     n = len(features)
     rng = np.random.RandomState(seed)
     data = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
@@ -442,7 +335,7 @@ def fit(
     if mesh is not None and checkpoint_dir:
         # no rank returns before the last checkpoint exists
         dist.barrier(group=mesh.get_group(), device_ids=[device.index] if device.type == "cuda" else None)
-    return rn02.numpy_params(model) if is_02 else numpy_params(model)
+    return recipe.numpy_params(model)
 
 
 def main(argv=None):
@@ -471,16 +364,15 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     check_device(args.device)
-    is_02 = args.topology == "rnnoise-0.2"
-    load = rn02.load_f32 if is_02 else load_h5
-    features, gains, vad = load(args.data, args.window)
+    recipe = TOPOLOGIES[args.topology]
+    features, gains, vad = recipe.load(args.data, args.window)
     print(f"{len(features)} sequences of {args.window} frames")
     params = fit(
         features,
         gains,
         vad,
         epochs=args.epochs,
-        batch_size=args.batch_size or (rn02.BATCH_SIZE if is_02 else 32),
+        batch_size=args.batch_size or recipe.batch_size,
         learning_rate=args.lr,
         seed=args.seed,
         topology=args.topology,
@@ -491,12 +383,8 @@ def main(argv=None):
         lr_schedule=args.lr_schedule,
         device=args.device,
     )
-    out = args.out or ("weights.pth" if is_02 else "weights.rnn")
-    if is_02:
-        torch.save({k: torch.from_numpy(v) for k, v in params.items()}, out)
-    else:
-        with open(out, "wb") as f:
-            f.write(export_model(params).to_bytes())
+    out = args.out or recipe.out
+    recipe.write(params, out)
     print(f"wrote {out}")
 
 

@@ -158,7 +158,7 @@ def test_generate_parallel_worlds(corpus):
 
 def test_generate_schema_and_h5_roundtrip(rows, tmp_path):
     h5py = pytest.importorskip("h5py")
-    from nnnoiseless_tpu_torch.training.train import load_h5
+    from nnnoiseless_tpu_torch.training.network import load_h5
 
     data, _ = rows
     assert np.all(np.isfinite(data))

@@ -82,7 +82,7 @@ def _fit_counted_worker(mesh, arrays, schedule):
     model = TN.init_train_params(torch.Generator().manual_seed(SEED))
     opt = TT.make_optimizer(model, 1e-3, None if schedule is None else EPOCHS * (N_SEQ // BATCH))
     data = {k: torch.as_tensor(v) for k, v in (("features", feats), ("gains", gains), ("vad", vad))}
-    seq_w = torch.as_tensor(TT.compute_sample_weights(gains))
+    seq_w = torch.as_tensor(TN.compute_sample_weights(gains))
     rng, losses = np.random.RandomState(SEED), []
     for _ in range(EPOCHS):
         perm = rng.permutation(N_SEQ)
@@ -100,7 +100,7 @@ def _program_worker(mesh, arrays):
     update count)."""
     feats, gains, vad = arrays
     data = {k: torch.as_tensor(v) for k, v in (("features", feats), ("gains", gains), ("vad", vad))}
-    seq_w = torch.as_tensor(TT.compute_sample_weights(gains))
+    seq_w = torch.as_tensor(TN.compute_sample_weights(gains))
     rng = np.random.RandomState(SEED + 1)
     idxs = [torch.as_tensor(rng.randint(0, N_SEQ, BATCH)) for _ in range(STEPS)]
     runs = []

@@ -236,7 +236,7 @@ def _averaged_means_fit(arrays):
     """The step that averages the two ranks' own weighted means (stock DDP
     over this loss), emulated in one process: the wrong step."""
     feats, gains, vad = (torch.as_tensor(a) for a in arrays)
-    seq_w = torch.as_tensor(TT.compute_sample_weights(arrays[1]))
+    seq_w = torch.as_tensor(TN.compute_sample_weights(arrays[1]))
     model = TN.init_train_params(torch.Generator().manual_seed(SEED))
     opt = TT.make_optimizer(model)
     perm = np.random.RandomState(SEED).permutation(N_SEQ)
@@ -271,7 +271,7 @@ def test_fit_dp_matches_single_device_and_jax(monkeypatch):
     monkeypatch.setattr(JT, "init_train_params", lambda key, meta: jax.tree_util.tree_map(jnp.asarray, init))
 
     arrays = _train_data()
-    seq_w = TT.compute_sample_weights(arrays[1])
+    seq_w = TN.compute_sample_weights(arrays[1])
     perm = np.random.RandomState(SEED).permutation(N_SEQ)
     for i in range(0, N_SEQ, BATCH):
         halves = np.split(perm[i : i + BATCH], 2)

@@ -12,6 +12,8 @@ against its eager steps, and the phase marks that split a traced replay::
     NNT_TEST_PLATFORM=cuda python -m pytest tests/test_torch_rn02.py -q -m cuda
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -199,7 +201,7 @@ def test_cli_trains_and_writes_a_state_dict_for_rnnoise_0_2(tmp_path, monkeypatc
     frames.astype(np.float32).tofile(path)
     features, gains, vad = rn02.load_f32(path, T, META)
     np.testing.assert_array_equal(np.concatenate([features, gains, vad], -1), frames)
-    monkeypatch.setitem(TT.TOPOLOGIES, "rnnoise-0.2", META)  # the small widths
+    monkeypatch.setitem(TT.TOPOLOGIES, "rnnoise-0.2", dataclasses.replace(rn02.RECIPE, meta=META))  # small widths
     out = tmp_path / "weights.pth"
     TT.main(["--topology", "rnnoise-0.2", "--data", str(path), "--window", str(T), "--epochs", "1",
              "--batch-size", str(B), "--out", str(out), "--device", "cpu"])

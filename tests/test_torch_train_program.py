@@ -194,7 +194,7 @@ def test_fit_history_holds_each_steps_loss():
     steps = 2 * (N_SEQ // B)
     opt = TT.make_optimizer(model, 1e-3, steps)
     data = {k: torch.as_tensor(v) for k, v in ds["data"].items()}
-    seq_w = torch.as_tensor(TT.compute_sample_weights(gains))
+    seq_w = torch.as_tensor(TN.compute_sample_weights(gains))
     rng, want = np.random.RandomState(5), []
     for _ in range(2):
         perm = rng.permutation(N_SEQ)

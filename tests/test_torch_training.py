@@ -209,7 +209,7 @@ def test_compute_sample_weights_matches_jax():
     gains = rng.rand(30, 50, NB_BANDS).astype(np.float32) ** np.linspace(0.2, 4, 30)[:, None, None]
     gains[rng.rand(*gains.shape) < 0.3] = -1.0
     gains[5] = -1.0  # a sequence with no data
-    np.testing.assert_array_equal(TT.compute_sample_weights(gains), JT.compute_sample_weights(gains))
+    np.testing.assert_array_equal(TN.compute_sample_weights(gains), JT.compute_sample_weights(gains))
 
 
 def test_load_h5_shapes(tmp_path):
@@ -217,7 +217,7 @@ def test_load_h5_shapes(tmp_path):
     data = np.random.RandomState(13).rand(350, NB_FEATURES + 2 * NB_BANDS + 1).astype(np.float32)
     with h5py.File(tmp_path / "train.h5", "w") as f:
         f.create_dataset("data", data=data)
-    feats, g, v = TT.load_h5(str(tmp_path / "train.h5"), window=100)
+    feats, g, v = TN.load_h5(str(tmp_path / "train.h5"), window=100)
     assert feats.shape == (3, 100, NB_FEATURES) and g.shape == (3, 100, NB_BANDS) and v.shape == (3, 100, 1)
     np.testing.assert_array_equal(g[1, 2], data[102, NB_FEATURES : NB_FEATURES + NB_BANDS])
     np.testing.assert_array_equal(v[2, 99, 0], data[299, -1])

@@ -139,7 +139,26 @@
    holds, latency: T frames of two dependent mat-vecs, wr read once;
    each direction's launches counted from just before its own call (1
    each).  Phase 17 also reads the captured train step's K7 launches by
-   direction (3 forward, 3 backward), which K7's rows carry.
+   direction (3 forward, 3 backward), which K7's rows carry;
+20. kernel K8, RNNoise 0.2's reset-after GRU recurrence over whole
+   sequences (ops/gru_reset_after.py), for each of its three GRUs at
+   rn02-train-128x2000's B = 128, T = 1,996, n = 384 from the recipe's
+   init: one forward and one backward launch against the plain loops on
+   the host's CPU (states and gates within 2e-5; dXW, dHW, W_hh's and
+   b_hh's gradients within 1e-4 of their largest magnitude), then each
+   launch timed cold (3 calls, each on its own copy of the inputs) beside
+   the bound (the recurrent products at the FP32 peak, 3.37 ms), the
+   plain path's time on the card (rn02's per-frame gru_step loop and
+   autograd's backward of it, as the trainer ran before K8) and
+   torch.nn.GRU's (cuDNN, TF32 off, the whole layer with its input
+   product, forward and backward); the clusters the card seats at once
+   (cudaOccupancyMaxActiveClusters) and the sequences a cluster chosen;
+   each direction's launches counted from just before its own call (1
+   each); and the launches by direction (3 forward, 3 backward) of the
+   rn02 train step captured at the cell's widths, B = 128 and 2,000-frame
+   sequences, which K8's rows carry.  Alone: python -c "import
+   torch, chip_smoke; chip_smoke.rn02_gru_phase(torch,
+   torch.device('cuda:0'), chip_smoke.card_line())".
 
 Any failure exits non-zero before the last line.  The last two lines are a
 JSON object with each kernel's launches, error, times and bound, and
@@ -238,6 +257,8 @@ PROFILED_CALLS = 20  # phase 8: process_frame calls under torch.profiler
 GRU_SHAPE = (32, 2000)
 GRU_REPS = 3
 GRU_H_BAR, GRU_GRAD_BAR = 2e-5, 1e-4
+# phase 20: kernel K8 at rn02-train-128x2000's (B, T after the convolutions, n)
+RN02_GRU_SHAPE = (128, 1996, 384)
 
 
 def card_line() -> str:
@@ -1406,6 +1427,162 @@ def gru_sequence_phase(torch, dev, card: str, step_launches: dict | None = None)
     return rows
 
 
+def rn02_step_launches(torch, dev) -> dict:
+    """K8's launches by direction in the RNNoise 0.2 train step captured at
+    rn02-train-128x2000's shape: the recipe's widths, a batch of 128
+    sequences of 2,000 frames."""
+    from nnnoiseless_tpu_torch.programs import TrainProgram
+    from nnnoiseless_tpu_torch.training import rn02
+    from nnnoiseless_tpu_torch.training import train as TT
+
+    b, frames = RN02_GRU_SHAPE[0], RN02_GRU_SHAPE[1] + 4  # the two convolutions take 4 frames
+    meta = rn02.RN02_META
+    model = rn02.init_params(torch.Generator().manual_seed(20), meta).to(dev)
+    opt = TT.make_adamw(model, 1e-3, 0.2)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    data = {"features": torch.randn((b, frames, meta.input_dim), generator=gen, device=dev),
+            "gains": torch.rand((b, frames, meta.output_dim), generator=gen, device=dev),
+            "vad": (torch.rand((b, frames, 1), generator=gen, device=dev) < 0.5).float()}
+    prog = TrainProgram(lambda idx: TT.train_step_indexed(model, opt, data, idx, None), model, opt, b)
+    prog(torch.arange(b, device=dev))
+    torch.cuda.synchronize()
+    captured = prog.program.captured
+    step = {"backward": captured.get("K8 backward", 0)}
+    step["forward"] = captured.get("K8", 0) - step["backward"]
+    print(f"[20] the rn02 train step captured at B={b}, {frames} frames, n={meta.gru_size}: launches {captured}; "
+          f"K8 forward {step['forward']}, backward {step['backward']} (3 and 3)")
+    del prog, model, opt, data
+    torch.cuda.empty_cache()
+    return step
+
+
+def plain_gru_ms(torch, layer, xw, dh) -> dict:
+    """Device ms on the card of the plain path K8 replaced: rn02's loop of
+    ``gru_step`` over the frames of ``xw`` with autograd recording, and
+    autograd's backward of it from ``dh`` to XW, W_hh and b_hh; each one
+    call after a warm-up."""
+    from nnnoiseless_tpu_torch.training import rn02
+
+    leaves = {k: layer[k].detach().clone().requires_grad_() for k in ("weight_hh_l0", "bias_hh_l0")}
+    xx = xw.detach().clone().requires_grad_()
+
+    def forward():
+        h = xx.new_zeros((xx.shape[0], xx.shape[2] // 3))
+        hs = []
+        for x in xx.unbind(1):
+            h = rn02.gru_step(leaves, x, h)
+            hs.append(h)
+        return torch.stack(hs, 1)
+
+    with torch.enable_grad():
+        fwd = cuda_ms(torch, forward)
+        out = forward()
+        bwd = cuda_ms(torch, lambda: torch.autograd.grad(out, [xx, *leaves.values()], dh, retain_graph=True))
+    return {"forward": fwd, "backward": bwd}
+
+
+def library_gru_ms(torch, layer, x, dh) -> dict:
+    """Device ms of ``torch.nn.GRU`` (cuDNN, TF32 off) on the same layer:
+    its forward, the whole layer with its input product, and its backward
+    from ``dh``, each the mean of GRU_REPS calls after a warm-up.  The
+    port never calls it: a yardstick beside K8's launches."""
+    n = x.shape[2]
+    gru = torch.nn.GRU(n, n, batch_first=True).to(x.device)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            gru.load_state_dict({k: v.detach() for k, v in layer.items()})
+        xx = x.detach().clone().requires_grad_()
+        fwd = cuda_ms(torch, lambda: gru(xx), GRU_REPS)
+        out = gru(xx)[0]
+        bwd = cuda_ms(torch, lambda: torch.autograd.grad(out, [xx, *gru.parameters()], dh, retain_graph=True),
+                      GRU_REPS)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return {"forward": fwd, "backward": bwd}
+
+
+def rn02_gru_phase(torch, dev, card: str) -> list:
+    """Phase 20, kernel K8 (see the module docstring): RNNoise 0.2's three
+    GRUs at rn02-train-128x2000's shape, each layer's forward and backward
+    launch against the plain loops on the host's CPU and timed cold on the
+    card, beside the plain path's time on the card and the bound; the
+    layout the card seats; the launches of the rn02 step captured at the
+    cell's shape.  Raises on a failed bar; returns the six launches' rows
+    for the kernels line."""
+    import torch.nn.functional as F
+
+    from nnnoiseless_tpu_torch.ops import gru_reset_after as G
+    from nnnoiseless_tpu_torch.training import rn02
+
+    step_launches = rn02_step_launches(torch, dev)
+    b, t, n = RN02_GRU_SHAPE
+    model = rn02.init_params(torch.Generator().manual_seed(20)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    x = torch.tanh(torch.randn(b, t, n, generator=gen, device=dev))  # as the second convolution's output
+    rows, failures = [], []
+    for name in rn02.GRUS:
+        layer = getattr(model, name)
+        with torch.no_grad():
+            xw = F.linear(x, layer["weight_ih_l0"], layer["bias_ih_l0"]).contiguous()
+            w, bh = layer["weight_hh_l0"].detach(), layer["bias_hh_l0"].detach()
+            dh = 1e-3 * torch.randn(b, t, n, generator=gen, device=dev)
+            # each direction's launches, each counted from just before its call
+            before = (G.launches, G.backward_launches)
+            h, gates = G.forward_cuda(xw, w, bh)
+            launched = {"forward": (G.launches - before[0], G.backward_launches - before[1])}
+            plans = {"forward": dict(G.last_plan)}
+            before = (G.launches, G.backward_launches)
+            dxw, dhw = G.backward_cuda(dh, h, gates, w)
+            launched["backward"] = (G.launches - before[0], G.backward_launches - before[1])
+            plans["backward"] = dict(G.last_plan)
+            got = [a.cpu() for a in (h, gates, dxw, dhw, *G._weight_grads(dhw, h))]
+            c_xw, c_w, c_bh, c_dh = (a.cpu() for a in (xw, w, bh, dh))
+            ph, pg = G.forward_plain(c_xw, c_w, c_bh)
+            pdxw, pdhw = G.backward_plain(c_dh, ph, pg, c_w)
+            want = (ph, pg, pdxw, pdhw, *G._weight_grads(pdhw, ph))
+            h_err = max(float((a - w_).abs().max()) for a, w_ in zip(got[:2], want[:2]))
+            g_abs = max(float((a - w_).abs().max()) for a, w_ in zip(got[2:], want[2:]))
+            g_rel = max(float((a - w_).abs().max()) / float(w_.abs().max()) for a, w_ in zip(got[2:], want[2:]))
+            fwd_ms = cold_ms(torch, lambda a, ww, bb: G.forward_cuda(a, ww, bb), (xw, w, bh), GRU_REPS)
+            bwd_ms = cold_ms(torch, lambda d, hh, g, ww: G.backward_cuda(d, hh, g, ww), (dh, h, gates, w),
+                             GRU_REPS)
+        lib_ms = library_gru_ms(torch, layer, x, dh)
+        plain_ms = plain_gru_ms(torch, layer, xw, dh)
+        macs = 3 * n * n * b * t  # the recurrent products, either way
+        for way, ms, abs_err, rel_err, n_bytes in (
+            ("forward", fwd_ms, h_err, None, 4 * (8 * n * b * t + 3 * n * n + 3 * n)),
+            ("backward", bwd_ms, g_abs, g_rel, 4 * (12 * n * b * t + 3 * n * n)),
+        ):
+            b_ms, b_by = bound(n_bytes, 2 * macs)
+            plan = plans[way]
+            rows.append({"name": f"K8 {way} {name}", "route": "cuda",
+                         "source": "nnnoiseless_tpu_torch/csrc/gru_ra_kernel.cu", "replaces": None,
+                         "launches": step_launches[way], "launches_here": launched[way],
+                         "max_abs_err": abs_err, "max_rel_err": rel_err, "ms": ms, "plain_ms": plain_ms[way],
+                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms[way],
+                         "library": "torch.nn.GRU (cuDNN, TF32 off), the whole layer with its input product",
+                         "plan": plan, "latency_bound": f"{t} dependent frames of {b} x {3 * n} x {n} MACs"})
+            err = f"max abs {abs_err:.3g}" + ("" if rel_err is None else f", over the largest {rel_err:.3g}")
+            print(f"[20] K8 {way} {name} (n={n}, B={b}, T={t}): {ms:.3f} ms cold ({ms / t * 1e3:.3f} us a frame), "
+                  f"bound {b_ms:.3f} ms by {b_by} ({b_ms / ms:.1%}); plain gru_step path on the card "
+                  f"{plain_ms[way]:.1f} ms; torch.nn.GRU (cuDNN, the whole layer) {lib_ms[way]:.3f} ms; "
+                  f"against the plain loops on the host's CPU {err}; clusters seated at once {plan['seated']}, {plan['sequences']} sequences "
+                  f"a cluster, {plan['clusters']} launched; launches (K8, K8 backward) {launched[way]}, in the "
+                  f"train step {step_launches[way]} ({card})")
+        if launched != {"forward": (1, 0), "backward": (1, 1)}:
+            failures.append(f"{name}: launches (K8, K8 backward) {launched} for one forward and one backward")
+        if not (h_err <= GRU_H_BAR and g_rel <= GRU_GRAD_BAR):
+            failures.append(f"{name}: the kernels miss the plain loops' bars")
+        x = h  # the next layer reads these states
+    if step_launches != {"forward": 3, "backward": 3}:
+        failures.append(f"the rn02 train step did not capture 3 forward and 3 backward K8 launches: {step_launches}")
+    if failures:
+        raise RuntimeError("phase 20: " + "; ".join(failures))
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1925,6 +2102,10 @@ def main() -> int:
     at(19)
     k7_rows = gru_sequence_phase(torch, dev, card, trained["k7_step"])
 
+    # ---- 20. RNNoise 0.2's GRU sequence kernels -----------------------------------------------
+    at(20)
+    k8_rows = rn02_gru_phase(torch, dev, card)
+
     band_nnz = int((BAND_CORR_MATRIX != 0).sum())
     bounds = kernel_bounds(b6, t6, b6 * t6, 2 * b6 * t6, b6 * t6, band_nnz)
 
@@ -1958,6 +2139,7 @@ def main() -> int:
           for name, (e, k_ms, p_ms, lib_ms, _) in probe.items()),
         # the trainer's recurrence; it replaces no TPU kernel (a lax.scan there)
         *k7_rows,
+        *k8_rows,
     ]
     for k in kernels:
         print(f"[15] {k['name']}: {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']} "

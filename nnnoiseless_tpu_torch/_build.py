@@ -61,6 +61,10 @@ _SIGNATURES = {
     "nnt_gru_seq_fwd": (P, P, P, P, I, I, I, I, P),
     # dh, h, gates, wr; out: dxw; batch, t_count, n, activation code, stream
     "nnt_gru_seq_bwd": (P, P, P, P, P, I, I, I, I, P),
+    # xw, w_hh, b_hh; out: h, gates; batch, t_count, n; plan (3 ints, host), stream
+    "nnt_gru_ra_fwd": (P, P, P, P, P, I, I, I, P, P),
+    # dh, h, gates, w_hh; out: dxw, dhw; batch, t_count, n; plan, stream
+    "nnt_gru_ra_bwd": (P, P, P, P, P, P, I, I, I, P, P),
 }
 
 last_build_seconds = 0.0

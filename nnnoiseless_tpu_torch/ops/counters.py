@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from . import fft, frame_kernel, gru_seq, pitch_kernel, rnn_kernel, window
+from . import fft, frame_kernel, gru_reset_after, gru_seq, pitch_kernel, rnn_kernel, window
 
 # The kernel wrappers' launch counters, by the names the tools print.
 COUNTERS = {
@@ -14,6 +14,8 @@ COUNTERS = {
     "K6": (window, "launches"),
     "K7": (gru_seq, "launches"),  # forward and backward
     "K7 backward": (gru_seq, "backward_launches"),
+    "K8": (gru_reset_after, "launches"),  # forward and backward
+    "K8 backward": (gru_reset_after, "backward_launches"),
     "probe": (fft, "launches"),
 }
 

@@ -20,11 +20,13 @@ r, z, n order::
 The parameters are named and shaped as ``rnnoise.py``'s (``conv1.weight``
 (128, 65, 3), ``gru1.weight_ih_l0`` (1152, 384), ..., ``vad_dense.bias``),
 so a state dict loads into that class and into ``torch.nn.GRU`` unchanged.
-Everything is written out in torch ops rather than taken from
-``torch.nn.GRU``/cuDNN, so that a train step is one captured graph whose
-nodes the program counts, as the 2018 step is.  The three GRUs are stacked
-with no feedback between them, so each layer's input product is one product
-over all frames and only ``h W_hh^T`` is left inside the loop over time.
+Everything is written out in torch ops and the port's kernels rather than
+taken from ``torch.nn.GRU``/cuDNN, so that a train step is one captured graph
+whose nodes the program counts, as the 2018 step is.  The three GRUs are
+stacked with no feedback between them, so each layer's input product is one
+product over all frames and only ``h W_hh^T`` is left inside the loop over
+time: on a card kernel K8 walks it, one launch a layer forward and one
+backward.
 Each convolution is one product over the frames' 3-frame windows
 (``unfold``), in the (batch, time, channel) layout the GRUs read.
 """
@@ -40,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import tracing
+from ..ops import gru_reset_after
 from .recipe import Recipe, adam_for_device
 
 
@@ -146,12 +149,18 @@ def gru_step(layer, xw: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 
 def gru_sequence(layer, x: torch.Tensor) -> torch.Tensor:
     """One GRU layer over (B, T, n) from a zero state -> its outputs (B, T, n).
-    The frames of the input product are taken by ``unbind``, whose gradient
-    is one stack (a frame taken by indexing would add a whole-sequence
-    gradient each step)."""
+    The input product is one product over all frames.  On a card the
+    recurrence is kernel K8 (``ops/gru_reset_after.py``), one launch forward
+    and one backward; on the CPU a loop of :func:`gru_step` over the frames
+    of the input product, taken by ``unbind``, whose gradient is one stack
+    (a frame taken by indexing would add a whole-sequence gradient each
+    step)."""
+    xws = F.linear(x, layer["weight_ih_l0"], layer["bias_ih_l0"])
+    if x.is_cuda:
+        return gru_reset_after.gru_sequence(xws, layer["weight_hh_l0"], layer["bias_hh_l0"])
     h = x.new_zeros((x.shape[0], layer["weight_hh_l0"].shape[1]))
     hs = []
-    for xw in F.linear(x, layer["weight_ih_l0"], layer["bias_ih_l0"]).unbind(1):
+    for xw in xws.unbind(1):
         h = gru_step(layer, xw, h)
         hs.append(h)
     return torch.stack(hs, 1)

@@ -266,7 +266,9 @@ def test_phases_split_a_traced_replay_of_the_rn02_step(card):
     for name, n in step.phase_nodes.items():
         by[name], at = ops[at : at + n], at + n
     assert sum(len(v) for v in by.values()) + len(ops[at:]) == len(ops)
-    assert len(by["forward.gru"]) >= 3 * (T - 4) * 5 and len(by["backward"]) > len(by["forward.gru"])
+    # the three GRUs' recurrences are kernel K8's three forward launches
+    assert sum("gru_ra_fwd" in n for n in by["forward.gru"]) == 3, by["forward.gru"]
+    assert len(by["backward"]) > len(by["forward.gru"])
     assert any("gemm" in n.lower() or "gemv" in n.lower() for n in by["forward.front"])
 
 
